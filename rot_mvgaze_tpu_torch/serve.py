@@ -1,0 +1,158 @@
+"""HTTP inference server for the two-view gaze model on the card (port of
+``scripts/serve.py``).
+
+    python -m rot_mvgaze_tpu_torch.serve --ckpt model.pth.tar [--port 8347] \
+        [--backbone_depth 50 --num_iter 3 --micro_batch 64 --f32]
+
+API:
+  GET  /healthz   -> {"status": "ok", "requests": ..., "samples": ..., ...}
+  POST /predict   body: npz with img_0, img_1 (N,H,W,3 uint8),
+                  head_pose_0, head_pose_1 (N,2 float32)
+                  -> npz with pred_gaze (N,2 float32 pitchyaw)
+
+A malformed request gets 400, a body over the size cap 413, a failure of
+the server 500.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+# request-body cap: generous for batch-256 224^2 two-view uint8 (~80 MB)
+MAX_BODY_BYTES = 256 * 1024 * 1024
+
+
+def build_handler(predictor, stats, max_body_bytes=MAX_BODY_BYTES):
+    """Request handler class over ``predictor`` (a thread-safe
+    :class:`~rot_mvgaze_tpu_torch.serving.BatchingPredictor`); ``stats`` is
+    a dict with ``requests``, ``samples`` and ``time`` that the handler
+    updates under a lock."""
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # quiet default access log
+            pass
+
+        def _reply(self, code, payload, ctype="application/json"):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def do_GET(self):
+            if self.path != "/healthz":
+                self._reply(404, b'{"error": "not found"}')
+                return
+            with lock:
+                snap = dict(stats)
+            body = json.dumps(
+                {
+                    "status": "ok",
+                    "requests": snap["requests"],
+                    "samples": snap["samples"],
+                    "avg_latency_ms": round(
+                        1e3 * snap["time"] / max(snap["requests"], 1), 2
+                    ),
+                }
+            ).encode()
+            self._reply(200, body)
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self._reply(404, b'{"error": "not found"}')
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                # cap the body BEFORE reading: np.load decompresses in full
+                if length > max_body_bytes:
+                    self._reply(
+                        413,
+                        json.dumps({
+                            "error": f"request body {length} bytes exceeds "
+                                     f"limit {max_body_bytes}"
+                        }).encode(),
+                    )
+                    return
+                data = np.load(io.BytesIO(self.rfile.read(length)))
+                t0 = time.perf_counter()
+                pred = predictor.predict(*(data[f] for f in predictor.request_fields))
+                dt = time.perf_counter() - t0
+                with lock:
+                    stats["requests"] += 1
+                    stats["samples"] += int(pred.shape[0])
+                    stats["time"] += dt
+                buf = io.BytesIO()
+                np.savez(buf, pred_gaze=pred)
+                self._reply(200, buf.getvalue(), "application/octet-stream")
+            except KeyError as e:
+                self._reply(400, json.dumps({"error": f"missing field {e}"}).encode())
+            except ValueError as e:
+                # shape/dtype validation: the CLIENT is at fault
+                self._reply(400, json.dumps({"error": f"bad request: {e}"}).encode())
+            except Exception as e:  # surface the error to the client
+                self._reply(
+                    500, json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
+                )
+
+    return Handler
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--ckpt", required=True, help="reference-format .pth.tar")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8347)
+    p.add_argument("--backbone_depth", default="50",
+                   help="ResNet depth or a variant name (resnext50_32x4d, ...)")
+    p.add_argument("--num_iter", type=int, default=3)
+    p.add_argument("--share_weights", action="store_true",
+                   help="one fuser/head reused across iterations; must match "
+                        "the checkpoint")
+    p.add_argument("--micro_batch", type=int, default=64)
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--f32", action="store_true", help="float32 compute")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--coalesce_ms", type=float, default=2.0,
+                   help="max wait to fill a shared micro-batch from "
+                        "concurrent requests")
+    args = p.parse_args()
+
+    import torch
+
+    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor
+
+    depth = int(args.backbone_depth) if args.backbone_depth.isdigit() else args.backbone_depth
+    predictor = GazePredictor(
+        args.ckpt,
+        backbone_depth=depth,
+        num_iter=args.num_iter,
+        share_weights=args.share_weights,
+        micro_batch=args.micro_batch,
+        image_size=args.image_size,
+        dtype=torch.float32 if args.f32 else torch.bfloat16,
+        device=args.device,
+    )
+    predictor.warmup()
+    batching = BatchingPredictor(predictor, max_delay_ms=args.coalesce_ms)
+    stats = {"requests": 0, "samples": 0, "time": 0.0}
+    server = ThreadingHTTPServer((args.host, args.port), build_handler(batching, stats))
+    print(f"serving on {args.host}:{args.port} (micro_batch={args.micro_batch})", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+        batching.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

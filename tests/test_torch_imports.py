@@ -1,0 +1,59 @@
+"""The port (rot_mvgaze_tpu_torch) and chip_smoke.py stand on torch and numpy
+alone: importing them loads neither JAX nor the JAX package, and no source
+file names either in an import, not even inside a function."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (this test file itself holds both, as the others do)
+import pytest
+import torch  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rot_mvgaze_tpu")
+PORT_FILES = sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "rot_mvgaze_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_importing_the_port_loads_no_jax():
+    code = """
+import importlib, json, pkgutil, sys
+import rot_mvgaze_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    rot_mvgaze_tpu_torch.__path__, "rot_mvgaze_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "rot_mvgaze_tpu_torch.serving" in result["imported"]
+    assert "rot_mvgaze_tpu_torch.ops.fusion" in result["imported"]
+    assert [m for m in result["loaded"] if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_source_imports_no_jax(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.append(node.module)
+    assert [m for m in imported if _forbidden(m)] == []
