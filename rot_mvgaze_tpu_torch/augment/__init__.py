@@ -1,3 +1,19 @@
-from rot_mvgaze_tpu_torch.augment.ops import eval_preprocess, normalize, to_float
+from rot_mvgaze_tpu_torch.augment.ops import (
+    color_jitter,
+    eval_preprocess,
+    normalize,
+    random_affine,
+    random_multi_erasing,
+    to_float,
+    train_preprocess,
+)
 
-__all__ = ["eval_preprocess", "normalize", "to_float"]
+__all__ = [
+    "color_jitter",
+    "eval_preprocess",
+    "normalize",
+    "random_affine",
+    "random_multi_erasing",
+    "to_float",
+    "train_preprocess",
+]

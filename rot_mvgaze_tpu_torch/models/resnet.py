@@ -7,8 +7,11 @@ under ``_feat_extractor.0.``. ``forward`` takes NHWC images, as the JAX
 backbone does, and runs them as an NCHW view with channels_last strides (the
 permute copies nothing). It returns the pooled ``(B, C)`` spatial mean; ``fc``
 is never called and is kept only so that ``load_state_dict(strict=True)``
-accepts a reference checkpoint. int8, remat and spatial partitioning are not
-ported.
+accepts a reference checkpoint. Every BatchNorm is a ``BatchNormAct`` that
+applies its own ReLU, and a block's last one also adds the residual, as the
+JAX package's ``ConvBN`` does: in train mode that is one fused op
+(``ops/batchnorm.py``), in eval ``nn.BatchNorm2d`` then add then ReLU. int8,
+remat and spatial partitioning are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional, Sequence, Type, Union
 import torch
 from torch import nn
 
-from rot_mvgaze_tpu_torch.models.norm import batch_norm
+from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
 
 
 def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
@@ -48,17 +51,15 @@ class BasicBlock(nn.Module):
                 f"got groups={groups}, base_width={base_width}"
             )
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = BatchNormAct(planes, relu=True)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = batch_norm(planes)
-        self.relu = nn.ReLU()
+        self.bn2 = BatchNormAct(planes, relu=True)  # + residual, then ReLU
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return self.relu(out + identity)
+        out = self.bn1(self.conv1(x))
+        return self.bn2(self.conv2(out), identity)
 
 
 class Bottleneck(nn.Module):
@@ -78,20 +79,18 @@ class Bottleneck(nn.Module):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = batch_norm(width)
+        self.bn1 = BatchNormAct(width, relu=True)
         self.conv2 = _conv(width, width, 3, stride, groups)
-        self.bn2 = batch_norm(width)
+        self.bn2 = BatchNormAct(width, relu=True)
         self.conv3 = _conv(width, planes * self.expansion, 1)
-        self.bn3 = batch_norm(planes * self.expansion)
-        self.relu = nn.ReLU()
+        self.bn3 = BatchNormAct(planes * self.expansion, relu=True)  # + residual, then ReLU
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return self.relu(out + identity)
+        out = self.bn1(self.conv1(x))
+        out = self.bn2(self.conv2(out))
+        return self.bn3(self.conv3(out), identity)
 
 
 class ResNet(nn.Module):
@@ -107,8 +106,7 @@ class ResNet(nn.Module):
     ) -> None:
         super().__init__()
         self.conv1 = _conv(3, 64, 7, 2)
-        self.bn1 = batch_norm(64)
-        self.relu = nn.ReLU()
+        self.bn1 = BatchNormAct(64, relu=True)
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
         inplanes = 64
         for stage_i, (planes, num_blocks) in enumerate(
@@ -122,7 +120,7 @@ class ResNet(nn.Module):
                 if block_i == 0 and (s != 1 or inplanes != planes * block.expansion):
                     downsample = nn.Sequential(
                         _conv(inplanes, planes * block.expansion, 1, s),
-                        batch_norm(planes * block.expansion),
+                        BatchNormAct(planes * block.expansion),
                     )
                 blocks.append(
                     block(inplanes, planes, s, downsample, groups, width_per_group)
@@ -138,7 +136,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(self.bn1(self.conv1(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return x.mean(dim=(2, 3))
 

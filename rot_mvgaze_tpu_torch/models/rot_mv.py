@@ -1,5 +1,5 @@
-"""Rotation-constrained cross-view gaze fusion model: port of the default,
-eval-mode path of ``rot_mvgaze_tpu/models/rot_mv.py``.
+"""Rotation-constrained cross-view gaze fusion model: port of the default
+path of ``rot_mvgaze_tpu/models/rot_mv.py``, in train and eval mode.
 
 input  : {img_0, img_1 (N,H,W,3) float, rot_0, rot_1 (N,3,3)}
 output : input ∪ {num_iter, img_feat_{0,1}, initial_rot_feat_{0,1},
@@ -51,11 +51,16 @@ class ImageFeatFuser(nn.Module):
     rotatable feature, rotated into this view by ``rot``.
 
     Layer 1 (rotate + concat + GEMM + bias + ReLU) is
-    :func:`rot_mvgaze_tpu_torch.ops.fusion.rotate_concat_matmul_relu`: the
+    :class:`rot_mvgaze_tpu_torch.ops.fusion.RotateConcatMatmulRelu`: the
     hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version for
-    a CPU tensor. Layer 2 is ``F.linear``. The output stays in the compute
-    dtype (bf16 in bf16 serving), as on the JAX package's plain path; the JAX
-    Pallas path returns float32 there because its layer-2 bias is float32.
+    a CPU tensor, and a backward of plain products. Layer 2 is ``F.linear``.
+    Autocast does not reach the custom op, so it casts at its own boundary,
+    as the JAX package's ``_FusedFuserMlp`` does: activations and W1 to the
+    compute dtype (autocast's, when autocast is on for the device, else the
+    image feature's), b1 to float32; gradients reach float32 parameters
+    through the casts. The output stays in the compute dtype (bf16 in bf16
+    serving), as on the JAX package's plain path; the JAX Pallas path returns
+    float32 there because its layer-2 bias is float32.
     """
 
     def __init__(self, img_feat_dim: int, num_feat_vec: int = NUM_FEAT_VEC) -> None:
@@ -69,16 +74,27 @@ class ImageFeatFuser(nn.Module):
     ) -> torch.Tensor:
         layer1 = self._fuser.blocks[0][0]
         layer2 = self._fuser.blocks[1][0]
+        device = img_feat.device.type
+        dtype = (
+            torch.get_autocast_dtype(device)
+            if torch.is_autocast_enabled(device) else img_feat.dtype
+        )
         out = fusion.fused_image_feat_fuser(
-            img_feat, rot_feat, rot,
-            layer1.weight, layer1.bias.float(), layer2.weight, layer2.bias,
+            img_feat.to(dtype), rot_feat.to(dtype).contiguous(), rot.float().contiguous(),
+            layer1.weight.to(dtype), layer1.bias.float(), layer2.weight, layer2.bias,
         )
         return out.reshape(-1, 3, self.num_feat_vec)
 
 
 class FeatRotationSymm(nn.Module):
-    """Twin-backbone, iterative rotation-constrained cross-view fusion
-    (eval mode). ``backbone_depth`` is an int depth or a ``BACKBONES`` name.
+    """Twin-backbone, iterative rotation-constrained cross-view fusion.
+    ``backbone_depth`` is an int depth or a ``BACKBONES`` name.
+
+    In train mode the backbone and the lifter run once per view, so that
+    the BatchNorm statistics stay per view and each running statistic
+    updates twice per step, as flax does when the module is called twice. In
+    eval both views run as one batch (BN then uses running statistics, so
+    this changes nothing but the batch size).
 
     ``share_weights`` reuses one fuser and one head across iterations,
     aliased as the reference does (``ModuleList([m] * n)``). The other
@@ -128,24 +144,26 @@ class FeatRotationSymm(nn.Module):
             )
 
     def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
-        if self.training:
-            # the train forward runs the backbone once per view (per-view BN
-            # statistics); it comes with the training slice
-            raise NotImplementedError(
-                "FeatRotationSymm is ported for eval only (ROADMAP A7): call .eval()"
-            )
         img_0, img_1 = data["img_0"], data["img_1"]
         rot_0 = data["rot_0"].float()
         rot_1 = data["rot_1"].float()
-        rot_10 = rot_0 @ rot_1.transpose(-1, -2)
-        rot_01 = rot_1 @ rot_0.transpose(-1, -2)
+        # the 3x3 composes stay float32 under autocast, as JAX keeps them at
+        # HIGHEST precision
+        with torch.autocast(rot_0.device.type, enabled=False):
+            rot_10 = rot_0 @ rot_1.transpose(-1, -2)
+            rot_01 = rot_1 @ rot_0.transpose(-1, -2)
 
-        # both views as ONE backbone batch (eval BN uses running statistics)
         n = img_0.shape[0]
-        both = self._feat_extractor(torch.cat([img_0, img_1], dim=0))
-        lifted = self._lifter(both)
-        img_feat_0, img_feat_1 = both[:n], both[n:]
-        rot_feat_0, rot_feat_1 = lifted[:n], lifted[n:]
+        if self.training:
+            img_feat_0 = self._feat_extractor(img_0)
+            img_feat_1 = self._feat_extractor(img_1)
+            rot_feat_0 = self._lifter(img_feat_0)
+            rot_feat_1 = self._lifter(img_feat_1)
+        else:
+            both = self._feat_extractor(torch.cat([img_0, img_1], dim=0))
+            lifted = self._lifter(both)
+            img_feat_0, img_feat_1 = both[:n], both[n:]
+            rot_feat_0, rot_feat_1 = lifted[:n], lifted[n:]
 
         pred: Dict[str, Any] = {
             "num_iter": self.num_iter,

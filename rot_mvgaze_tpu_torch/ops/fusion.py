@@ -11,7 +11,10 @@ Per fusion iteration and view::
 kernel in ``csrc/fusion.cu`` for a CUDA tensor, and with its plain PyTorch
 version, :func:`rotate_concat_matmul_relu_reference`, for a CPU tensor. It
 never falls back: a CUDA call launches the kernel or raises.
-``fused_image_feat_fuser`` adds layer 2 as a plain ``F.linear``. Weights are
+:class:`RotateConcatMatmulRelu` makes it differentiable: its forward is that
+wrapper, its backward the JAX package's ``custom_vjp`` backward (plain
+products, as JAX leaves them to XLA). ``fused_image_feat_fuser`` adds layer 2
+as a plain ``F.linear``. Weights are
 used as ``nn.Linear`` stores them, ``(out, in)``. Unlike the JAX wrapper,
 the batch is not padded: the kernel masks ragged edges itself.
 """
@@ -42,10 +45,12 @@ def rotate_concat_matmul_relu_reference(
     b1: torch.Tensor,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: rotate in f32, round to the input
-    dtype, concat, f32 product + bias, ReLU, round to the input dtype."""
-    rotated = torch.einsum("bij,bjv->biv", rot.float(), rot_feat.float())
+    dtype, concat, f32 product + bias, ReLU, round to the input dtype. (A
+    float64 input runs in float64 throughout, for a reference.)"""
+    acc = torch.promote_types(img_feat.dtype, torch.float32)
+    rotated = torch.einsum("bij,bjv->biv", rot.to(acc), rot_feat.to(acc))
     x = torch.cat([img_feat, rotated.to(img_feat.dtype).flatten(1)], dim=1)
-    return F.linear(x.float(), w1.float(), b1.float()).relu().to(img_feat.dtype)
+    return F.linear(x.to(acc), w1.to(acc), b1.to(acc)).relu().to(img_feat.dtype)
 
 
 def _check_inputs(img_feat, rot_feat, rot, w1, b1) -> Tuple[int, int, int, int]:
@@ -178,6 +183,51 @@ def rotate_concat_matmul_relu(
 rotate_concat_matmul_relu.launches = 0
 
 
+class RotateConcatMatmulRelu(torch.autograd.Function):
+    """Differentiable :func:`rotate_concat_matmul_relu`.
+
+    Saves its inputs and ``h``, as the JAX ``custom_vjp`` does, and in the
+    backward masks the gradient by ``h > 0``, recomputes the rotated row in
+    f32 rounded to the input dtype, and forms ``dW1 = g^T [img; R f]``,
+    ``db1 = Σ g``, ``[dimg; drot] = g W1``, ``dfeat = R^T drot`` and
+    ``dR = drot f^T`` (the last two in f32). Gradients come back in each
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, img_feat, rot_feat, rot, w1, b1):
+        # autocast off: the op sets its dtypes at its own boundary
+        with torch.autocast(img_feat.device.type, enabled=False):
+            h = rotate_concat_matmul_relu(img_feat, rot_feat, rot, w1, b1)
+        ctx.save_for_backward(img_feat, rot_feat, rot, w1, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        img_feat, rot_feat, rot, w1, h = ctx.saved_tensors
+        d, v = img_feat.shape[1], rot_feat.shape[2]
+        need = ctx.needs_input_grad
+        dimg = dfeat = drot = dw1 = db1 = None
+        # f32 where JAX uses f32 (f64 for a float64 reference)
+        acc = torch.promote_types(img_feat.dtype, torch.float32)
+        with torch.autocast(img_feat.device.type, enabled=False):
+            g = torch.where(h > 0, g, torch.zeros_like(g)).to(img_feat.dtype)
+            if need[3]:
+                rotated = torch.einsum("bij,bjv->biv", rot.to(acc), rot_feat.to(acc))
+                x = torch.cat([img_feat, rotated.to(img_feat.dtype).flatten(1)], dim=1)
+                dw1 = g.t() @ x
+            if need[4]:
+                db1 = g.to(acc).sum(0).to(rot.dtype)
+            if need[0] or need[1] or need[2]:
+                dx = g @ w1
+                dimg = dx[:, :d]
+                drotated = dx[:, d:].reshape(-1, 3, v).to(acc)
+                if need[1]:
+                    dfeat = torch.einsum("bji,bjv->biv", rot.to(acc), drotated).to(rot_feat.dtype)
+                if need[2]:
+                    drot = torch.einsum("biv,bjv->bij", drotated, rot_feat.to(acc)).to(rot.dtype)
+        return dimg, dfeat, drot, dw1, db1
+
+
 def fused_image_feat_fuser(
     img_feat: torch.Tensor,
     rot_feat: torch.Tensor,
@@ -187,7 +237,8 @@ def fused_image_feat_fuser(
     w2: torch.Tensor,
     b2: torch.Tensor,
 ) -> torch.Tensor:
-    """Full two-layer ImageFeatFuser: layer 1 above, then ``F.linear(h, w2,
-    b2)`` (a plain product, as the JAX package left it to XLA)."""
-    h = rotate_concat_matmul_relu(img_feat, rot_feat, rot, w1, b1)
+    """Full two-layer ImageFeatFuser: layer 1 above (differentiable), then
+    ``F.linear(h, w2, b2)`` (a plain product, as the JAX package left it to
+    XLA)."""
+    h = RotateConcatMatmulRelu.apply(img_feat, rot_feat, rot, w1, b1)
     return F.linear(h, w2, b2)

@@ -44,6 +44,9 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "rot_mvgaze_tpu_torch.serving" in result["imported"]
     assert "rot_mvgaze_tpu_torch.ops.fusion" in result["imported"]
+    for module in ("ops.batchnorm", "train.steps", "train.schedule", "train.trainer",
+                   "losses.gaze", "losses.stereo"):
+        assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
 
 

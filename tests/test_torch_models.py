@@ -152,7 +152,11 @@ def test_unported_ablations_raise(ablation):
 
 
 def test_train_mode_forward_raises():
+    """The train forward runs each view alone, so one 32x32 image per view
+    leaves layer 4's BatchNorms one value per channel: it raises, as
+    ``nn.BatchNorm2d`` does (the train forward itself is held to JAX in
+    tests/test_torch_train.py)."""
     model = FeatRotationSymm(backbone_depth=18, num_iter=1)
-    data = {k: torch.from_numpy(v) for k, v in _data().items()}
-    with pytest.raises(NotImplementedError, match="eval"):
+    data = {k: torch.from_numpy(v) for k, v in _data(batch=1).items()}
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
         model(data)
