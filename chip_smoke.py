@@ -34,6 +34,17 @@ script exits non-zero and prints no result line:
    bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample
    and a ragged shape; the fusion Function's gradients against autograd
    through its plain version at B=64.
+6c. conv kernel: conv3x3_bn_stats (csrc/conv_bn.cu) against its plain
+   version at the probe's shape (256 x 14 x 14 x 256, bf16), at R50's four
+   stride-1 3x3 shapes at 64 images (56x56x64, 28x28x128, 14x14x256,
+   7x7x512), at a ragged shape with Cout != C, at C and Cout that take the
+   scalar loads, and with float32 x: out within atol 3e-2 of the plain
+   version's float32 accumulator, stats within rtol 5e-3 / atol 1.0, and
+   two calls bit for bit equal.
+6d. probe: python -m rot_mvgaze_tpu_torch.probe_conv_bn_epilogue's
+   run_probe at its defaults, the conv kernel's main path (counts reset
+   just before, read just after; it launches on no other path, as in JAX),
+   then at R50's four shapes; each record printed.
 7. training: FeatRotationSymm(50, 3) through make_train_step, bf16 autocast,
    64 pairs of 224x224 uint8 images, augmentation on, seeded weights: 2
    warm-up steps, then 10 timed steps, the counts reset before each step
@@ -85,6 +96,12 @@ BN_KERNELS = {  # wrapper name -> the Pallas kernel it replaces
     "bn_apply": "rot_mvgaze_tpu/ops/batchnorm.py:106",  # and :113, the residual variant
     "bn_bwd_reduce": "rot_mvgaze_tpu/ops/batchnorm.py:155",
     "bn_bwd_dx": "rot_mvgaze_tpu/ops/batchnorm.py:210",
+}
+CONV = {
+    "name": "conv3x3_bn_stats",
+    "route": "cuda",
+    "source": "rot_mvgaze_tpu_torch/csrc/conv_bn.cu",
+    "replaces": "rot_mvgaze_tpu/ops/conv_bn.py:53",
 }
 PAIRS = 64  # stereo pairs per training step (128 images)
 
@@ -270,8 +287,8 @@ def run_serving(fusion, ckpt: str) -> dict:
         raise RuntimeError(
             f"fusion launches {launches} != 6 x {micro_batches} micro-batches"
         )
-    if any(counts[k] for k in BN_KERNELS):
-        raise RuntimeError(f"eval serving launched train-mode BN kernels: {counts}")
+    if any(counts[k] for k in BN_KERNELS) or counts["conv3x3_bn_stats"]:
+        raise RuntimeError(f"eval serving launched train-mode BN or conv kernels: {counts}")
 
     worst = 0.0
     for req, reply in zip(reqs, replies):
@@ -471,6 +488,78 @@ BN_CASES = [  # name, rows, C, relu, residual: shapes of the R50 step at 64 pair
 BN_FWD_TOL, BN_GRAD_TOL, BN_BF16_TOL = (1e-5, 1e-5), (5e-4, 1e-3), (1e-2, 1e-2)
 
 
+CONV_CASES = [  # name, B, H, W, C, Cout, x dtype
+    ("probe", 256, 14, 14, 256, 256, torch.bfloat16),
+    ("r50 layer1", 64, 56, 56, 64, 64, torch.bfloat16),
+    ("r50 layer2", 64, 28, 28, 128, 128, torch.bfloat16),
+    ("r50 layer3", 64, 14, 14, 256, 256, torch.bfloat16),
+    ("r50 layer4", 64, 7, 7, 512, 512, torch.bfloat16),
+    ("ragged", 3, 5, 7, 72, 40, torch.bfloat16),
+    ("cout != c", 16, 14, 14, 256, 128, torch.bfloat16),
+    ("scalar loads", 2, 9, 11, 13, 20, torch.float32),
+    ("f32 x", 8, 14, 14, 128, 128, torch.float32),
+]
+R50_CONV_SHAPES = [(64, 56, 64), (64, 28, 128), (64, 14, 256), (64, 7, 512)]  # B, H=W, C=Cout
+
+
+def check_conv_kernel(conv_bn) -> float:
+    """Phase 6c: the conv kernel against its plain version on the card;
+    returns the max |out err| at the probe's shape. The plain version runs
+    on x in float32, which gives its float32 accumulator unrounded (the
+    inputs are rounded to bf16 either way): a bf16 output is then off by its
+    one rounding, under 2^-6 for |out| < 4 (x standard normal, w scaled by
+    1/sqrt(9C), so |out| is near 1). Bars: out atol 3e-2, stats rtol 5e-3 /
+    atol 1.0 (tests/test_conv_bn.py)."""
+    probe_err = None
+    for name, b, h, w, c, cout, dtype in CONV_CASES:
+        g = torch.Generator(device="cuda").manual_seed(b * h + c + cout)
+        x = torch.randn(b, h, w, c, device="cuda", generator=g).to(dtype)
+        wt = (torch.randn(3, 3, c, cout, device="cuda", generator=g) / (9 * c) ** 0.5).to(dtype)
+        out, stats = conv_bn.conv3x3_bn_stats(x, wt)
+        again = conv_bn.conv3x3_bn_stats(x, wt)
+        torch.cuda.synchronize()
+        acc, want_stats = conv_bn.conv3x3_bn_stats_plain(x.float(), wt)
+        err = (out.float() - acc).abs().max().item()
+        serr = (stats - want_stats).abs().max().item()
+        torch.testing.assert_close(out.float(), acc, atol=3e-2, rtol=0, msg=lambda m: f"conv {name} out: {m}")
+        torch.testing.assert_close(stats, want_stats, atol=1.0, rtol=5e-3, msg=lambda m: f"conv {name} stats: {m}")
+        if not (torch.equal(out, again[0]) and torch.equal(stats, again[1])):
+            raise RuntimeError(f"conv {name}: two calls on the same inputs differ")
+        log(f"conv kernel {name} {b}x{h}x{w}x{c}->{cout} {str(dtype)[6:]}: out max|err| {err:.3e} "
+            f"(atol 3e-2), stats max|err| {serr:.3e} (of max |stat| {want_stats.abs().max().item():.4g}); "
+            f"deterministic")
+        if name == "probe":
+            probe_err = err
+    return probe_err
+
+
+def run_conv_probe(conv_bn, tag) -> dict:
+    """Phase 6d: the probe at its defaults, the conv kernel's main path,
+    counts reset just before and read just after; then at R50's four
+    shapes (20 steps each). Prints each record."""
+    from rot_mvgaze_tpu_torch.probe_conv_bn_epilogue import run_probe
+
+    conv_bn.conv3x3_bn_stats.launches = 0
+    record = run_probe()
+    launches = conv_bn.conv3x3_bn_stats.launches
+    print(json.dumps({"conv_probe": record, "launches": launches, **tag}), flush=True)
+    if launches == 0:
+        raise RuntimeError("the probe never launched the conv kernel")
+    log(f"probe: kernel {record['kernel_ms']:.5f} ms, library conv {record['library_conv_ms']:.5f}, "
+        f"conv + stats {record['library_conv_plus_stats_ms']:.5f}, plain {record['plain_ms']:.4f}, "
+        f"bound {record['bound_ms']:.5f} ({record['bound_by']}): {record['verdict']}; "
+        f"{launches} kernel launches")
+    r50 = []
+    for b, hw, c in R50_CONV_SHAPES:
+        rec = run_probe(batch=b, hw=hw, c=c, steps=20)
+        r50.append(rec)
+        print(json.dumps({"conv_probe_r50": rec, **tag}), flush=True)
+        log(f"conv {b}x{hw}x{hw}x{c}: kernel {rec['kernel_ms']:.5f} ms, conv + stats "
+            f"{rec['library_conv_plus_stats_ms']:.5f}, conv {rec['library_conv_ms']:.5f}, bound "
+            f"{rec['bound_ms']:.5f} ({rec['bound_by']}): {rec['verdict']}")
+    return {"record": record, "launches": launches, "r50": r50}
+
+
 def check_bn_kernels(batchnorm) -> dict:
     """Phase 6a: every BN kernel against its plain version in float64 on
     the same inputs; returns each kernel's max |err| over the bf16 cases."""
@@ -588,18 +677,26 @@ def make_trainer(state, dtype):
 
 
 def launch_counts(fusion, batchnorm) -> dict:
+    from rot_mvgaze_tpu_torch.ops import conv_bn
+
     counts = {name: getattr(batchnorm, name).launches for name in BN_KERNELS}
     counts["fusion"] = fusion.rotate_concat_matmul_relu.launches
+    counts["conv3x3_bn_stats"] = conv_bn.conv3x3_bn_stats.launches
     return counts
 
 
 def reset_counts(fusion, batchnorm) -> None:
+    from rot_mvgaze_tpu_torch.ops import conv_bn
+
     for name in BN_KERNELS:
         getattr(batchnorm, name).launches = 0
     fusion.rotate_concat_matmul_relu.launches = 0
+    conv_bn.conv3x3_bn_stats.launches = 0
 
 
-PER_STEP = {"bn_stats": 106, "bn_apply": 106, "bn_bwd_reduce": 106, "bn_bwd_dx": 106, "fusion": 6}
+# the conv kernel has no launch on the step, as in JAX (its only caller is the probe)
+PER_STEP = {"bn_stats": 106, "bn_apply": 106, "bn_bwd_reduce": 106, "bn_bwd_dx": 106, "fusion": 6,
+            "conv3x3_bn_stats": 0}
 
 
 def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
@@ -877,8 +974,9 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from rot_mvgaze_tpu_torch.kernels import build
-    from rot_mvgaze_tpu_torch.ops import batchnorm, fusion
+    from rot_mvgaze_tpu_torch.ops import batchnorm, conv_bn, fusion
 
+    tag = {"card": name, "power_limit": power}
     t0 = time.perf_counter()
     build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -888,6 +986,9 @@ def main() -> int:
     max_abs_err = check_kernels(fusion)
     bn_err = check_bn_kernels(batchnorm)
     check_fusion_grads(fusion)
+    conv_err = check_conv_kernel(conv_bn)
+    conv = run_conv_probe(conv_bn, tag)
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
@@ -909,7 +1010,6 @@ def main() -> int:
     bn_timing = time_bn(batchnorm, trained["bn_shapes"])
     log(f"training phases took {time.perf_counter() - t0:.1f} s")
 
-    tag = {"card": name, "power_limit": power}
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
     print(json.dumps({"training_kernel_vs_plain": paths, **tag}), flush=True)
@@ -956,7 +1056,19 @@ def main() -> int:
         "library_ms": bn_timing[kind]["library_ms"],
         "library_covers": bn_timing[kind]["library_covers"],
         "timed_over": "the 106 BN calls of one R50 step at 64 pairs, bf16",
-    } for kind, replaces in BN_KERNELS.items()]
+    } for kind, replaces in BN_KERNELS.items()] + [{
+        **CONV,
+        "launches": conv["launches"],
+        "launches_by_path": {"probe": conv["launches"]},
+        "max_abs_err": conv_err,
+        "ms": conv["record"]["kernel_ms"],
+        "plain_ms": conv["record"]["plain_ms"],
+        "bound_ms": conv["record"]["bound_ms"],
+        "bound_by": conv["record"]["bound_by"],
+        "library_ms": conv["record"]["library_conv_plus_stats_ms"],
+        "library_covers": "F.conv2d (bf16, channels_last) + torch.batch_norm_stats",
+        "timed_over": "one call at the probe's shape, 256 x 14 x 14 x 256 -> 256, bf16",
+    }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

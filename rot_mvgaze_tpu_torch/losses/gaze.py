@@ -44,8 +44,11 @@ def gaze_l2_loss(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
 
 
 def gaze_l1_loss(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
-    """Mean absolute error over pitchyaw."""
-    return torch.mean(torch.abs(y - y_hat))
+    """Mean absolute error over pitchyaw. |d| is written as ``where(d >= 0,
+    d, -d)`` so that its gradient at d = 0 is +1, as ``jnp.abs``'s is
+    (``torch.abs``'s is 0); the values are the same."""
+    d = y - y_hat
+    return torch.mean(torch.where(d >= 0, d, -d))
 
 
 def make_gaze_loss(loss_type: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:

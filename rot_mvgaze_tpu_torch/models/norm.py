@@ -1,9 +1,9 @@
 """BatchNorm for the backbone (counterpart of ``rot_mvgaze_tpu/models/norm.py``).
 
 The JAX package's BN reproduces torch ``BatchNorm2d``: biased batch variance
-for normalisation, unbiased variance (``n/(n-1)``, n = N·H·W) in the running
-estimate, running update ``running*0.9 + stat*0.1`` (flax momentum 0.9 ==
-torch momentum 0.1), eps 1e-5. :class:`BatchNormAct` is an
+for normalisation, unbiased variance (``n/max(n-1, 1)``, n = N·H·W) in the
+running estimate, running update ``running*0.9 + stat*0.1`` (flax momentum
+0.9 == torch momentum 0.1), eps 1e-5. :class:`BatchNormAct` is an
 ``nn.BatchNorm2d`` with those settings, so its state-dict keys are
 ``BatchNorm2d``'s and reference checkpoints load strictly, plus an optional
 fused residual add and ReLU:
@@ -42,12 +42,6 @@ class BatchNormAct(nn.BatchNorm2d):
                 out = out + residual
             return F.relu(out) if self.relu else out
         n = x.numel() // x.shape[1]
-        if n <= 1:
-            # as nn.BatchNorm2d: one value per channel has no batch variance
-            raise ValueError(
-                f"Expected more than 1 value per channel when training, got input size "
-                f"{tuple(x.shape)}"
-            )
         if residual is not None:
             residual = residual.to(x.dtype)
         y, mean, var = fused_batchnorm_act(
@@ -61,5 +55,8 @@ class BatchNormAct(nn.BatchNorm2d):
                 else 1.0 / float(self.num_batches_tracked)
             )
             self.running_mean.lerp_(mean, factor)
-            self.running_var.lerp_(var * (n / (n - 1)), factor)
+            # n / max(n - 1, 1), as the JAX package: one value per channel
+            # (batch variance 0) blends a running variance of 0, where
+            # nn.BatchNorm2d would raise
+            self.running_var.lerp_(var * (n / max(n - 1, 1)), factor)
         return y

@@ -173,10 +173,12 @@ def _lib():
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
-    """Per-tile arrival counters of the reduction kernels, one zeroed buffer
-    per (device, stream). The last block of a tile resets its counter, so
-    the buffer stays zero between launches and needs no fill per call."""
+def tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """Per-tile arrival counters of the kernels that finish a reduction in
+    their last block (the reductions here, ``ops/conv_bn.py``), one zeroed
+    buffer per (device, stream). The last block of a tile resets its
+    counter, so the buffer stays zero between launches and needs no fill per
+    call; launches on one stream run in order, so they can share it."""
     stream = torch.cuda.current_stream(device)
     key = (device.index, stream.cuda_stream)
     buf = _counters.get(key)
@@ -258,7 +260,7 @@ def bn_stats(x2, scale, bias, eps):
     c = x2.shape[1]
     outs = [torch.empty(c, dtype=torch.float32, device=x2.device) for _ in range(5)]
     ws = torch.empty(2 * chunks * c, dtype=torch.float64, device=x2.device)
-    counters = _tile_counters(x2.device, tiles)
+    counters = tile_counters(x2.device, tiles)
     with torch.cuda.device(x2.device):
         err = _lib().mvgaze_bn_stats(
             _DTYPE_CODES[x2.dtype], x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -305,7 +307,7 @@ def bn_bwd_reduce(g2, y2, x2, mean, rstd, scale, relu):
     c = x2.shape[1]
     outs = [torch.empty(c, dtype=torch.float32, device=x2.device) for _ in range(5)]
     ws = torch.empty(2 * chunks * c, dtype=torch.float64, device=x2.device)
-    counters = _tile_counters(x2.device, tiles)
+    counters = tile_counters(x2.device, tiles)
     with torch.cuda.device(x2.device):
         err = _lib().mvgaze_bn_bwd_reduce(
             _DTYPE_CODES[x2.dtype], g2.data_ptr(), _ptr(y2) if relu else None, x2.data_ptr(),

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from rot_mvgaze_tpu_torch.geometry import rotation_matrix_2d
-from rot_mvgaze_tpu_torch.ops import batchnorm, fusion
+from rot_mvgaze_tpu_torch.ops import batchnorm, conv_bn, fusion
 
 
 @pytest.fixture
@@ -158,6 +158,33 @@ def test_bn_kernels_match_float64_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bn_kernels_one_value_per_channel(cuda, dtype):
+    """A (1, C) view: one value per channel, as in R18's layer 4 with one
+    32x32 image per view in train mode. The kernels agree with their plain
+    versions in the same dtype (the plain versions take the kernels' steps,
+    so atol/rtol 1e-6); the batch variance is 0 up to the rounding of x²
+    (exactly 0 in bf16), dx is exactly 0, and y = relu(bias + res) up to the
+    rounding of x*a near 316*|x| (atol 2e-3 in f32, 2e-2 in bf16)."""
+    x, res, gy, scale, bias = _bn_inputs(1, 64, dtype, cuda, seed=5)
+    mean, var, rstd, a, b = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    y = batchnorm.bn_apply(x, a, b, res, True)
+    got_bwd = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, True)
+    dx, dres = batchnorm.bn_bwd_dx(gy, y, x, mean, rstd, *got_bwd[2:], None, None, True, True)
+    torch.cuda.synchronize()
+    want = batchnorm.bn_stats_reference(x, scale, bias, 1e-5)
+    want_y = batchnorm.bn_apply_reference(x, want[3], want[4], res, True)
+    want_bwd = batchnorm.bn_bwd_reduce_reference(gy, y, x, want[0], want[2], scale, True)
+    want_dx, _ = batchnorm.bn_bwd_dx_reference(gy, y, x, want[0], want[2], *want_bwd[2:], None, None, True, True)
+    for got_t, want_t in zip((mean, var, rstd, a, b, y, *got_bwd, dx), (*want, want_y, *want_bwd, want_dx)):
+        torch.testing.assert_close(got_t, want_t, atol=1e-6, rtol=1e-6)
+    assert float(var.abs().max()) <= (0.0 if dtype == torch.bfloat16 else 1e-6 * float((x.float() ** 2).max()))
+    assert torch.count_nonzero(dx) == 0
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), torch.relu(bias + res.float()), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
 def test_bn_op_backward_launches_each_kernel_once(cuda):
     """fused_batchnorm_act through autograd: 2 launches forward, 2 backward,
     and a channels_last gradient needs no copy."""
@@ -179,3 +206,74 @@ def test_bn_wrapper_rejects_non_contiguous(cuda):
     x = torch.randn(64, 16, device=cuda)
     with pytest.raises(ValueError):
         batchnorm.bn_stats(x.T.contiguous().T, torch.ones(16, device=cuda), torch.zeros(16, device=cuda), 1e-5)
+
+
+CONV_CASES = [  # B, H, W, C, Cout, x dtype
+    (64, 56, 56, 64, 64, torch.bfloat16),  # R50 layer 1's 3x3 at 64 images
+    (64, 28, 28, 128, 128, torch.bfloat16),  # layer 2
+    (64, 14, 14, 256, 256, torch.bfloat16),  # layer 3
+    (64, 7, 7, 512, 512, torch.bfloat16),  # layer 4 (split K)
+    (3, 5, 7, 72, 40, torch.bfloat16),  # ragged rows, Cout != C
+    (2, 9, 11, 13, 20, torch.float32),  # C and Cout not multiples of 8: scalar loads
+    (5, 6, 6, 128, 64, torch.float32),  # f32 x and w rounded to bf16 in the tile load
+]
+
+
+def _conv_inputs(b, h, w, c, cout, dtype, device, seed=0):
+    """x standard normal, w scaled by 1/sqrt(9C) so that |out| stays near 1."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c), dtype=np.float32)).to(device, dtype)
+    wt = rng.standard_normal((3, 3, c, cout), dtype=np.float32) / np.sqrt(9 * c)
+    return x, torch.from_numpy(wt.astype(np.float32)).to(device, dtype)
+
+
+def _assert_conv_close(got, want):
+    """The kernel's output against the plain version's float32 accumulator
+    (the plain version run on x in float32: the inputs are rounded to bf16
+    either way) at atol 3e-2, the JAX suite's bar: a bf16 output is off by
+    its one rounding, at most 2^-6 for |out| < 4. Stats at rtol 5e-3 /
+    atol 1.0 (tests/test_conv_bn.py)."""
+    (out, stats), (acc, want_stats) = got, want
+    torch.testing.assert_close(out.float(), acc, atol=3e-2, rtol=0)
+    torch.testing.assert_close(stats, want_stats, atol=1.0, rtol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", CONV_CASES, ids=["l1", "l2", "l3", "l4", "ragged", "scalar", "f32"]
+)
+def test_conv_kernel_matches_plain(cuda, case):
+    *shape, dtype = case
+    x, w = _conv_inputs(*shape, dtype, cuda)
+    before = conv_bn.conv3x3_bn_stats.launches
+    got = conv_bn.conv3x3_bn_stats(x, w)
+    torch.cuda.synchronize()
+    assert conv_bn.conv3x3_bn_stats.launches == before + 1
+    assert got[0].dtype == dtype and got[0].shape == (*shape[:3], shape[4])
+    assert got[1].dtype == torch.float32 and got[1].shape == (2, shape[4])
+    _assert_conv_close(got, conv_bn.conv3x3_bn_stats_plain(x.float(), w))
+    # deterministic: no float atomics, a fixed order of partial sums
+    again = conv_bn.conv3x3_bn_stats(x, w)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.gpu
+def test_conv_kernel_zero_padding_at_borders(cuda):
+    """Mass only at each image's corner: taps past the border read zeros,
+    never the neighbouring row or image of the flattened rows."""
+    x = torch.zeros(4, 5, 6, 128, device=cuda, dtype=torch.bfloat16)
+    x[:, 0, 0, :] = 1.0
+    x[:, -1, -1, :] = -2.0
+    _, w = _conv_inputs(1, 1, 1, 128, 96, torch.bfloat16, cuda, seed=4)
+    got = conv_bn.conv3x3_bn_stats(x, w)
+    _assert_conv_close(got, conv_bn.conv3x3_bn_stats_plain(x.float(), w))
+    assert torch.count_nonzero(got[0][:, 2].float()) == 0  # the row two away from both corners
+
+
+@pytest.mark.gpu
+def test_conv_kernel_rejects_bad_inputs(cuda):
+    x, w = _conv_inputs(2, 4, 4, 16, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="w must be"):
+        conv_bn.conv3x3_bn_stats(x, w[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_bn.conv3x3_bn_stats(x.transpose(1, 2), w)

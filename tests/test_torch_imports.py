@@ -45,7 +45,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
     assert "rot_mvgaze_tpu_torch.serving" in result["imported"]
     assert "rot_mvgaze_tpu_torch.ops.fusion" in result["imported"]
     for module in ("ops.batchnorm", "train.steps", "train.schedule", "train.trainer",
-                   "losses.gaze", "losses.stereo"):
+                   "losses.gaze", "losses.stereo", "ops.conv_bn", "probe_conv_bn_epilogue"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
 

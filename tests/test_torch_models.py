@@ -152,11 +152,28 @@ def test_unported_ablations_raise(ablation):
 
 
 def test_train_mode_forward_raises():
-    """The train forward runs each view alone, so one 32x32 image per view
-    leaves layer 4's BatchNorms one value per channel: it raises, as
-    ``nn.BatchNorm2d`` does (the train forward itself is held to JAX in
-    tests/test_torch_train.py)."""
-    model = FeatRotationSymm(backbone_depth=18, num_iter=1)
-    data = {k: torch.from_numpy(v) for k, v in _data(batch=1).items()}
-    with pytest.raises(ValueError, match="more than 1 value per channel"):
-        model(data)
+    """One 32x32 image per view in train mode: the train forward runs each
+    view alone, so layer 4's BatchNorms see one value per channel. The port
+    follows the JAX package there (batch variance 0, output act(bias [+
+    residual]), running variance blended with 0 by ``n / max(n - 1, 1)``)
+    and raises nothing: outputs at atol 2e-4 / rtol 1e-3, running statistics
+    at 1e-4."""
+    data = _data(batch=1, seed=3)
+    variables = _jax_variables(R18, data, seed=3)
+    want, updates = JaxFeatRotationSymm(**R18).apply(
+        variables, jax.tree.map(jnp.asarray, data), train=True, mutable=["batch_stats"]
+    )
+    model = _port_model(R18, variables).train()
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(v) for k, v in data.items()})
+    assert model._feat_extractor[0].layer4[1].bn2.num_batches_tracked == 2  # once per view
+    for key in ("img_feat_0", "img_feat_1", "initial_rot_feat_0", "initial_rot_feat_1"):
+        np.testing.assert_allclose(
+            got[key].numpy(), np.asarray(want[key]), atol=2e-4, rtol=1e-3, err_msg=key
+        )
+    _assert_outputs_close(got, want, R18["num_iter"])
+    new_vars = {**variables, "batch_stats": jax.tree.map(np.asarray, updates["batch_stats"])}
+    state = model.state_dict()
+    for key, value in state_dict_from_jax(new_vars, **R18).items():
+        if key.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(state[key].numpy(), value.numpy(), atol=1e-4, rtol=0, err_msg=key)
