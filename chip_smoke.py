@@ -10,16 +10,20 @@ script exits non-zero and prints no result line:
 1. card: requires CUDA; prints the card's name and power limit.
 2. build: compiles every csrc/*.cu for sm_90a and prints each -Xptxas -v
    report (registers, shared memory, spills).
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes and at ragged ones. float32 runs with TF32 off
-   (cuBLAS and cuDNN) throughout the script, so float32 means float32.
+3. kernels: the fusion kernel against its plain PyTorch version on the
+   card, at the serving shapes, B in {1, 50, 200}, H = 1000, R18's widths
+   and an unaligned shape: bf16 at the model's shapes must take the wgmma
+   variant, f32 and the unaligned shape the generic one, and each case is
+   called twice, bit for bit. float32 runs with TF32 off (cuBLAS and cuDNN)
+   throughout the script, so float32 means float32.
 4. serving: FeatRotationSymm(backbone_depth=50, num_iter=3) at full width,
    seeded random weights (BN running statistics estimated from one batch,
    so activations have a trained net's scale), saved as a reference-format
    .pth.tar and loaded by GazePredictor (bf16, micro-batch 64, 224x224).
    The HTTP server answers concurrent requests of N in {1, 17, 64, 100}
    through BatchingPredictor; kernel launch counts are reset just before and
-   read just after, and must be 6 per micro-batch (2 views x 3 iterations).
+   read just after, and must be 6 per micro-batch (2 views x 3 iterations),
+   all of the fusion kernel's wgmma variant.
    Replies must match direct predicts, and the kernel path must agree with
    the plain path on the card (bf16: mean angular delta <= 0.1 deg; f32:
    atol 2e-4 / rtol 1e-3 on pred_gaze).
@@ -32,8 +36,9 @@ script exits non-zero and prints no result line:
 6. BatchNorm kernels: the four train-mode BN kernels (csrc/batchnorm.cu)
    against their plain versions run in float64, forward and backward, in
    bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample
-   and a ragged shape; the fusion Function's gradients against autograd
-   through its plain version at B=64.
+   and a ragged shape, with bn_stats and bn_bwd_reduce called twice, bit
+   for bit; the fusion Function's gradients against autograd through its
+   plain version at B=64.
 6c. conv kernel: conv3x3_bn_stats (csrc/conv_bn.cu) against its plain
    version at the probe's shape (256 x 14 x 14 x 256, bf16), at R50's four
    stride-1 3x3 shapes at 64 images (56x56x64, 28x28x128, 14x14x256,
@@ -49,16 +54,30 @@ script exits non-zero and prints no result line:
    64 pairs of 224x224 uint8 images, augmentation on, seeded weights: 2
    warm-up steps, then 10 timed steps, the counts reset before each step
    and read after it (exactly 106 launches of each BN kernel and 6 fusion
-   launches per step); every loss finite. Kernel path against plain path
+   launches per step, all of the wgmma variant); every loss finite. Kernel
+   path against plain path
    from one saved state: f32 (TF32 off) loss rtol 1e-4 and every gradient
    atol 5e-3 / rtol 5e-2 where f32 can reach that bar of an f64 step (see
    check_training_paths); bf16 loss within 1% and mean angular delta of
    pred_gaze <= 0.1 deg. Timings of the BN kernels over all 106 BN calls of
-   a step (kernel, plain, library: device time by the profiler; bound from
-   bytes), step ms, images/s, peak memory and the step's device time by
-   kernel class.
+   a step (kernel, plain, each kernel's own library counterpart and the
+   library's forward and backward pairs: device time by the profiler; bound
+   from bytes), step ms, images/s, peak memory and the step's device time
+   by kernel class.
 8. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --old DIR
+
+runs phase 1 and then, instead of phases 2-8, times an earlier checkout's
+kernels against this tree's in turns on the same card: DIR holds a checkout
+of an earlier commit (for example ``git archive <commit>`` unpacked into a
+directory that .gitignore lists). Four child processes run in the order
+old, new, new, old; each builds its own tree's kernels and times the fuser
+at the serving shape (time_fusion's inputs and timing) and bn_bwd_reduce
+and bn_stats over the 106 BN calls of one training step (time_bn's inputs
+and timing), at shapes taken once from this tree's R50 backbone. One JSON
+line per turn, and a last line with every turn and the card.
 """
 
 from __future__ import annotations
@@ -85,7 +104,8 @@ BF16_FLOPS = 989e12
 FUSION = {
     "name": "rotate_concat_matmul_relu",
     "route": "cuda",
-    "source": "rot_mvgaze_tpu_torch/csrc/fusion.cu",
+    "source": "rot_mvgaze_tpu_torch/csrc/fusion_wgmma.cu",
+    "generic_source": "rot_mvgaze_tpu_torch/csrc/fusion.cu",
     "replaces": "rot_mvgaze_tpu/ops/fusion.py:44",
 }
 # serving shapes of the fuser's layer 1 at R50: B, D, V, H
@@ -138,25 +158,40 @@ def fusion_inputs(b, d, v, h, dtype, seed, copies=1):
 
 def check_kernels(fusion) -> float:
     """Phase 3: the fusion kernel against its plain version; returns the
-    max |err| at the serving shape in bf16."""
+    max |err| at the serving shape in bf16. bf16 at the model's shapes must
+    take the wgmma variant, f32 and the unaligned bf16 shape the generic
+    one; every case is called twice and must agree bit for bit."""
     cases = [
-        ("serving", B, H, torch.bfloat16), ("serving", B, H, torch.float32),
-        ("b1", 1, H, torch.bfloat16), ("b1", 1, H, torch.float32),
-        ("b50", 50, H, torch.bfloat16), ("b50", 50, H, torch.float32),
-        ("h1000", B, 1000, torch.bfloat16), ("h1000", B, 1000, torch.float32),
+        ("serving", B, D, V, H, torch.bfloat16), ("serving", B, D, V, H, torch.float32),
+        ("b1", 1, D, V, H, torch.bfloat16), ("b1", 1, D, V, H, torch.float32),
+        ("b50", 50, D, V, H, torch.bfloat16), ("b50", 50, D, V, H, torch.float32),
+        ("b200", 200, D, V, H, torch.bfloat16),
+        ("h1000", B, D, V, 1000, torch.bfloat16), ("h1000", B, D, V, 1000, torch.float32),
+        ("r18", B, 512, V, 2048, torch.bfloat16),
+        ("unaligned", 7, 200, 40, 96, torch.bfloat16),
     ]
     serving_err = None
-    for name, b, h, dtype in cases:
-        (img, feat, rot), [(w1, b1)] = fusion_inputs(b, D, V, h, dtype, seed=b + h)
+    for name, b, d, v, h, dtype in cases:
+        (img, feat, rot), [(w1, b1)] = fusion_inputs(b, d, v, h, dtype, seed=b + h)
+        want_variant = "wgmma" if dtype == torch.bfloat16 and name != "unaligned" else "generic"
+        before = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
         got = fusion.rotate_concat_matmul_relu(img, feat, rot, w1, b1)
+        again = fusion.rotate_concat_matmul_relu(img, feat, rot, w1, b1)
         torch.cuda.synchronize()
+        after = fusion.rotate_concat_matmul_relu.launches_by_variant
+        if after[want_variant] - before[want_variant] != 2:
+            raise RuntimeError(f"fusion {name} {dtype}: expected the {want_variant} variant, "
+                               f"launches went {before} -> {after}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"fusion {name} {dtype}: two calls on the same inputs differ")
         want = fusion.rotate_concat_matmul_relu_reference(img, feat, rot, w1, b1)
         # f32: TF32 off on both sides. bf16 compared in f32: one bf16 ulp is
         # 2^-8 and K is 3584
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-        log(f"fusion kernel {name} B={b} H={h} {str(dtype)[6:]}: max|err| {err:.3e} (tol {tol})")
+        log(f"fusion kernel {name} B={b} D={d} V={v} H={h} {str(dtype)[6:]} ({want_variant}): "
+            f"max|err| {err:.3e} (tol {tol}); bit for bit on a second call")
         if name == "serving" and dtype == torch.bfloat16:
             serving_err = err
     return serving_err
@@ -273,6 +308,7 @@ def run_serving(fusion, ckpt: str) -> dict:
             c.join(timeout=600)
         counts = launch_counts(fusion, batchnorm)
         launches = counts["fusion"]
+        by_variant = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
         micro_batches = pred.micro_batches_run - mb_before
     finally:
         httpd.shutdown()
@@ -287,6 +323,8 @@ def run_serving(fusion, ckpt: str) -> dict:
         raise RuntimeError(
             f"fusion launches {launches} != 6 x {micro_batches} micro-batches"
         )
+    if by_variant["wgmma"] != launches:
+        raise RuntimeError(f"serving fusion launches by variant {by_variant}: not all wgmma")
     if any(counts[k] for k in BN_KERNELS) or counts["conv3x3_bn_stats"]:
         raise RuntimeError(f"eval serving launched train-mode BN or conv kernels: {counts}")
 
@@ -318,7 +356,8 @@ def run_serving(fusion, ckpt: str) -> dict:
     np.testing.assert_allclose(kernel_f32, plain_f32, atol=2e-4, rtol=1e-3)
     log(f"f32 kernel vs plain path: max |diff| {err32:.3e} (atol 2e-4, rtol 1e-3)")
     del pred32
-    return {"launches": launches, "predictor": pred, "request": requests([64], seed=3)[0]}
+    return {"launches": launches, "by_variant": by_variant, "predictor": pred,
+            "request": requests([64], seed=3)[0]}
 
 
 def time_cuda(fn, n_iter=100, n_warm=10) -> float:
@@ -359,19 +398,27 @@ def fusion_bound_ms(b, d, v, h, itemsize) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_fusion(fusion) -> dict:
-    """Kernel, plain version and library call at the serving shape in bf16.
-    Four (W1, b1) copies in rotation (103 MB, over the 50 MB L2), so each
-    call reads W1 from HBM."""
+def fusion_serving_case(fusion):
+    """(inputs, weights, kernel): the serving shape in bf16 with four (W1,
+    b1) copies in rotation (103 MB, over the 50 MB L2), so that each call
+    of kernel(i) reads W1 from HBM."""
     (img, feat, rot), weights = fusion_inputs(B, D, V, H, torch.bfloat16, seed=7, copies=4)
-    x_cat = torch.cat(
-        [img, torch.einsum("bij,bjv->biv", rot, feat.float()).to(img.dtype).flatten(1)], 1
-    )
-    lib_bias = [b1.to(torch.bfloat16) for _, b1 in weights]
 
     def kernel(i):
         w1, b1 = weights[i % 4]
         fusion.rotate_concat_matmul_relu(img, feat, rot, w1, b1)
+
+    return (img, feat, rot), weights, kernel
+
+
+def time_fusion(fusion) -> dict:
+    """Kernel, plain version and library call at the serving shape in bf16,
+    W1 from HBM (fusion_serving_case)."""
+    (img, feat, rot), weights, kernel = fusion_serving_case(fusion)
+    x_cat = torch.cat(
+        [img, torch.einsum("bij,bjv->biv", rot, feat.float()).to(img.dtype).flatten(1)], 1
+    )
+    lib_bias = [b1.to(torch.bfloat16) for _, b1 in weights]
 
     def plain(i):
         w1, b1 = weights[i % 4]
@@ -407,7 +454,7 @@ def time_serving(pred, req, n_iter=20) -> dict:
 
 
 PROFILE_CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("fusion kernel", ("rotate_concat_matmul_relu",)),
+    ("fusion kernel", ("rotate_concat_matmul_relu", "fusion_wgmma")),
     ("bn_stats kernel", ("bn_stats_kernel",)),
     ("bn_apply kernel", ("bn_apply_kernel",)),
     ("bn_bwd_reduce kernel", ("bn_bwd_reduce_kernel",)),
@@ -562,7 +609,8 @@ def run_conv_probe(conv_bn, tag) -> dict:
 
 def check_bn_kernels(batchnorm) -> dict:
     """Phase 6a: every BN kernel against its plain version in float64 on
-    the same inputs; returns each kernel's max |err| over the bf16 cases."""
+    the same inputs, and the two reductions called twice, bit for bit;
+    returns each kernel's max |err| over the bf16 cases."""
     worst = {name: 0.0 for name in BN_KERNELS}
     for case, rows, c, relu, with_res in BN_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -578,7 +626,13 @@ def check_bn_kernels(batchnorm) -> dict:
             y = batchnorm.bn_apply(x, a, b, res, relu)
             dscale, dbias, k, mg, mgx = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu)
             dx, dres = batchnorm.bn_bwd_dx(gy, y, x, mean, rstd, k, mg, mgx, gmean, gvar, relu, want_dres)
+            # the reductions are deterministic: a second call agrees bit for bit
+            again = (*batchnorm.bn_stats(x, scale, bias, 1e-5),
+                     *batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu))
             torch.cuda.synchronize()
+            for got_t, again_t in zip((mean, var, rstd, a, b, dscale, dbias, k, mg, mgx), again):
+                if not torch.equal(got_t, again_t):
+                    raise RuntimeError(f"bn {case} {dtype}: two reduction calls differ")
 
             def d(t):
                 return None if t is None else t.double()
@@ -691,12 +745,23 @@ def reset_counts(fusion, batchnorm) -> None:
     for name in BN_KERNELS:
         getattr(batchnorm, name).launches = 0
     fusion.rotate_concat_matmul_relu.launches = 0
+    fusion.rotate_concat_matmul_relu.launches_by_variant = dict.fromkeys(fusion.VARIANTS, 0)
     conv_bn.conv3x3_bn_stats.launches = 0
 
 
 # the conv kernel has no launch on the step, as in JAX (its only caller is the probe)
 PER_STEP = {"bn_stats": 106, "bn_apply": 106, "bn_bwd_reduce": 106, "bn_bwd_dx": 106, "fusion": 6,
             "conv3x3_bn_stats": 0}
+
+
+def record_bn_shapes(model, shapes: list) -> list:
+    """Forward pre-hooks that append ((N, C, H, W), relu, residual) of each
+    BatchNormAct call in ``model`` to ``shapes``; returns the hooks."""
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+
+    return [m.register_forward_pre_hook(
+        lambda mod, args: shapes.append((tuple(args[0].shape), mod.relu, len(args) > 1 and args[1] is not None)))
+        for m in model.modules() if isinstance(m, BatchNormAct)]
 
 
 def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
@@ -710,12 +775,8 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(22)
 
     # record the shapes of the step's 106 BN calls (for the timings)
-    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
-
     shapes = []
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: shapes.append((tuple(args[0].shape), mod.relu, len(args) > 1 and args[1] is not None)))
-        for m in model.modules() if isinstance(m, BatchNormAct)]
+    hooks = record_bn_shapes(model, shapes)
     losses = [step(batch, gen)["loss_gaze"]]
     for h in hooks:
         h.remove()
@@ -727,6 +788,7 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     torch.cuda.reset_peak_memory_stats()
     batchnorm.fused_batchnorm_act.grad_copies = 0
     totals = {k: 0 for k in PER_STEP}
+    by_variant = dict.fromkeys(fusion.VARIANTS, 0)
     t0 = time.perf_counter()
     for _ in range(n_timed):
         reset_counts(fusion, batchnorm)
@@ -734,8 +796,13 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
         counts = launch_counts(fusion, batchnorm)
         if counts != PER_STEP:
             raise RuntimeError(f"launches per step {counts} != {PER_STEP}")
+        step_variants = fusion.rotate_concat_matmul_relu.launches_by_variant
+        if step_variants["wgmma"] != PER_STEP["fusion"]:
+            raise RuntimeError(f"fusion launches by variant in a step {step_variants}: not all wgmma")
         for k, n in counts.items():
             totals[k] += n
+        for k, n in step_variants.items():
+            by_variant[k] += n
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -757,7 +824,7 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     breakdown = profile_device(profile_step, n_iter=3)
     ms = wall / n_timed * 1e3
     return {
-        "launches": totals, "step_ms": ms, "imgs_per_s": 2 * PAIRS * n_timed / wall,
+        "launches": totals, "fusion_by_variant": by_variant, "step_ms": ms, "imgs_per_s": 2 * PAIRS * n_timed / wall,
         "peak_mib": peak_mib, "profile": breakdown, "bn_shapes": shapes, **copies,
     }
 
@@ -870,14 +937,11 @@ BN_OPS_PER_ELEMENT = {"bn_stats": 3, "bn_apply": 4, "bn_bwd_reduce": 6, "bn_bwd_
 F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 
 
-def time_bn(batchnorm, shapes) -> dict:
-    """Phase 7c: each BN kernel over the step's 106 BN calls (one call of the
-    timed function = all 106, at their shapes, bf16), its plain version, the
-    library calls for the same functions, and the bounds. Times are device
-    time (torch.profiler, 3 passes), so launch gaps do not count."""
-    import torch.nn.functional as F
-
-    g = torch.Generator(device="cuda").manual_seed(41)
+def bn_calls(batchnorm, shapes, seed=41) -> list:
+    """Seeded bf16 inputs of every BN call in ``shapes`` (((N, C, H, W),
+    relu, residual) as run_training records them), and each call's forward
+    outputs and backward sums from the kernels, as views (rows, C) and NCHW."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     calls = []
     for (n, c, h, w), relu, res in shapes:
         rows = n * h * w
@@ -896,22 +960,43 @@ def time_bn(batchnorm, shapes) -> dict:
                           g4=gy.view(n, h, w, c).permute(0, 3, 1, 2),
                           y4=y.view(n, h, w, c).permute(0, 3, 1, 2)))
     torch.cuda.synchronize()
+    return calls
 
-    def runner(kind, plain):
-        fn = getattr(batchnorm, f"{kind}_reference" if plain else kind)
 
-        def run(_):
-            for q in calls:
-                if kind == "bn_stats":
-                    fn(q["x"], q["scale"], q["bias"], 1e-5)
-                elif kind == "bn_apply":
-                    fn(q["x"], q["a"], q["b"], q["r"], q["relu"])
-                elif kind == "bn_bwd_reduce":
-                    fn(q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["scale"], q["relu"])
-                else:
-                    fn(q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["k"], q["mg"], q["mgx"],
-                       None, None, q["relu"], q["relu"] and q["res"])
-        return run
+def bn_runner(batchnorm, calls, kind, plain=False):
+    """fn(i) that runs one BN kernel (or its plain version) over ``calls``."""
+    fn = getattr(batchnorm, f"{kind}_reference" if plain else kind)
+
+    def run(_):
+        for q in calls:
+            if kind == "bn_stats":
+                fn(q["x"], q["scale"], q["bias"], 1e-5)
+            elif kind == "bn_apply":
+                fn(q["x"], q["a"], q["b"], q["r"], q["relu"])
+            elif kind == "bn_bwd_reduce":
+                fn(q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["scale"], q["relu"])
+            else:
+                fn(q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["k"], q["mg"], q["mgx"],
+                   None, None, q["relu"], q["relu"] and q["res"])
+    return run
+
+
+def device_ms(fn) -> float:
+    """Device ms per call of fn(0) by the profiler (kernel durations summed,
+    3 calls): the plain and library BN calls allocate and launch enough on
+    the host that events around them would also count host gaps."""
+    return profile_device(lambda: (fn(0), torch.cuda.synchronize()), n_iter=3)[
+        "device_busy_ms_per_call"]
+
+
+def time_bn(batchnorm, shapes) -> dict:
+    """Phase 7c: each BN kernel over the step's 106 BN calls (one call of the
+    timed function = all 106, at their shapes, bf16), its plain version, the
+    library calls for the same functions, and the bounds. Times are device
+    time (torch.profiler, 3 passes), so launch gaps do not count."""
+    import torch.nn.functional as F
+
+    calls = bn_calls(batchnorm, shapes)
 
     def library_forward(_):
         for q in calls:
@@ -930,48 +1015,179 @@ def time_bn(batchnorm, shapes) -> dict:
             torch.ops.aten.native_batch_norm_backward(
                 gg, q["x4"], q["scale"], None, None, smean, sinv, True, 1e-5, [True, True, True])
 
-    def device_ms(fn):
-        # device time by the profiler (kernel durations summed): the plain
-        # and library calls allocate and launch enough on the host that
-        # events around them would also count host gaps
-        return profile_device(lambda: (fn(0), torch.cuda.synchronize()), n_iter=3)[
-            "device_busy_ms_per_call"]
+    # one library call per kernel, on the same inputs (the counterparts
+    # of the four kernels' functions; none is called by the port)
+    aten = torch.ops.aten
+    lib_stats = [aten.batch_norm_stats(q["x4"], 1e-5) for q in calls]
+    lib_sums = [aten.batch_norm_backward_reduce(q["g4"], q["x4"], m, inv, q["scale"], True, True, True)
+                for q, (m, inv) in zip(calls, lib_stats)]
+    counts = [torch.tensor([q["rows"]], dtype=torch.int32, device="cuda") for q in calls]
+
+    def library_stats(_):
+        for q in calls:
+            aten.batch_norm_stats(q["x4"], 1e-5)
+
+    def library_apply(_):
+        for q, (m, inv) in zip(calls, lib_stats):
+            out = aten.batch_norm_elemt(q["x4"], q["scale"], q["bias"], m, inv, 1e-5)
+            if q["r4"] is not None:
+                out.add_(q["r4"])
+            if q["relu"]:
+                out.relu_()
+
+    def library_bwd_reduce(_):
+        for q, (m, inv) in zip(calls, lib_stats):
+            gg = aten.threshold_backward(q["g4"], q["y4"], 0) if q["relu"] else q["g4"]
+            aten.batch_norm_backward_reduce(gg, q["x4"], m, inv, q["scale"], True, True, True)
+
+    def library_bwd_dx(_):
+        for q, (m, inv), sums, n in zip(calls, lib_stats, lib_sums, counts):
+            gg = aten.threshold_backward(q["g4"], q["y4"], 0) if q["relu"] else q["g4"]
+            aten.batch_norm_backward_elemt(gg, q["x4"], m, inv, q["scale"], sums[0], sums[1], n)
+
+    library = {
+        "bn_stats": (library_stats, "torch.batch_norm_stats"),
+        "bn_apply": (library_apply, "torch.batch_norm_elemt, then add_ and relu_ where the call has them"),
+        "bn_bwd_reduce": (library_bwd_reduce,
+                          "threshold_backward under ReLU + torch.batch_norm_backward_reduce"),
+        "bn_bwd_dx": (library_bwd_dx, "threshold_backward under ReLU + torch.batch_norm_backward_elemt"),
+    }
 
     out = {}
     for kind in BN_KERNELS:
+        kernel, plain = bn_runner(batchnorm, calls, kind), bn_runner(batchnorm, calls, kind, True)
         # plain, kernel, kernel, plain: compare within one call, in turns
-        p1, k1 = device_ms(runner(kind, True)), device_ms(runner(kind, False))
-        k2, p2 = device_ms(runner(kind, False)), device_ms(runner(kind, True))
+        p1, k1 = device_ms(plain), device_ms(kernel)
+        k2, p2 = device_ms(kernel), device_ms(plain)
         nbytes = sum(bn_bytes(kind, q["rows"], q["c"], 2, q["relu"], q["res"]) for q in calls)
         ops = sum(BN_OPS_PER_ELEMENT[kind] * q["rows"] * q["c"] for q in calls)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        lib_fn, covers = library[kind]
+        lib_ms = device_ms(lib_fn)
         out[kind] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                     "library_ms": lib_ms, "library_covers": covers}
         log(f"{kind} over the step's {len(calls)} calls (device ms): kernel {k1:.4f}/{k2:.4f}, "
-            f"plain {p1:.4f}/{p2:.4f}, bound {max(t_bytes, t_ops):.4f} ({nbytes} bytes; {ops} ops)")
+            f"plain {p1:.4f}/{p2:.4f}, library {lib_ms:.4f} ({covers}), bound "
+            f"{max(t_bytes, t_ops):.4f} ({nbytes} bytes; {ops} ops)")
     lib_fwd = device_ms(library_forward)
     lib_bwd = device_ms(library_backward)
-    log(f"library per step (device ms): F.batch_norm(training) + add + relu {lib_fwd:.4f} vs "
+    log(f"library pairs per step (device ms): F.batch_norm(training) + add + relu {lib_fwd:.4f} vs "
         f"bn_stats + bn_apply {out['bn_stats']['ms'] + out['bn_apply']['ms']:.4f}; "
         f"threshold_backward + native_batch_norm_backward {lib_bwd:.4f} vs bn_bwd_reduce + "
         f"bn_bwd_dx {out['bn_bwd_reduce']['ms'] + out['bn_bwd_dx']['ms']:.4f}")
     for kind in ("bn_stats", "bn_apply"):
-        out[kind]["library_ms"], out[kind]["library_covers"] = lib_fwd, "bn_stats + bn_apply"
+        out[kind]["library_pair_ms"] = lib_fwd
+        out[kind]["library_pair_covers"] = "F.batch_norm(training) + add + relu: bn_stats and bn_apply"
     for kind in ("bn_bwd_reduce", "bn_bwd_dx"):
-        out[kind]["library_ms"], out[kind]["library_covers"] = lib_bwd, "bn_bwd_reduce + bn_bwd_dx"
+        out[kind]["library_pair_ms"] = lib_bwd
+        out[kind]["library_pair_covers"] = ("threshold_backward + native_batch_norm_backward: "
+                                            "bn_bwd_reduce and bn_bwd_dx")
     return out
 
 
+# ---------------------------------------------------------------------------
+# old against new in turns (--old DIR)
+# ---------------------------------------------------------------------------
 
-def main() -> int:
+
+def step_bn_shapes() -> list:
+    """((N, C, H, W), relu, residual) of the 106 BN calls of one R50
+    training step at 64 pairs: the backbone once per view, as the step runs
+    it (eval mode, so that no kernel is needed to find the shapes)."""
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.manual_seed(0)
+    backbone = FeatRotationSymm(backbone_depth=50, num_iter=3)._feat_extractor
+    backbone = backbone.to(device="cuda", memory_format=torch.channels_last).eval()
+    shapes = []
+    hooks = record_bn_shapes(backbone, shapes)
+    x = torch.zeros(PAIRS, 224, 224, 3, device="cuda")  # NHWC, as the backbone takes it
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        for _ in range(2):
+            backbone(x)
+    for h in hooks:
+        h.remove()
+    if len(shapes) != 106:
+        raise RuntimeError(f"{len(shapes)} BN calls in a step, expected 106")
+    return shapes
+
+
+TURN_KERNELS = ("bn_bwd_reduce", "bn_stats")
+
+
+def run_turn(tree: str, shapes_file: str) -> dict:
+    """One turn, in a child process: import ``tree``'s port, build its
+    kernels and time the fuser at the serving shape (time_cuda, W1 from
+    HBM) and each kernel of TURN_KERNELS over the step's 106 BN calls
+    (device_ms), on the inputs of time_fusion and time_bn."""
+    sys.path.insert(0, tree)
+    from rot_mvgaze_tpu_torch.kernels import build
+    from rot_mvgaze_tpu_torch.ops import batchnorm, fusion
+
+    if not fusion.__file__.startswith(tree):
+        raise RuntimeError(f"turn of {tree} imported {fusion.__file__}")
+    build.build()
+    _, _, kernel = fusion_serving_case(fusion)
+    with open(shapes_file) as f:
+        calls = bn_calls(batchnorm, json.load(f))
+    return {"tree": tree, "fusion_ms": time_cuda(kernel, n_iter=200, n_warm=20),
+            **{f"{kind}_ms_per_step": device_ms(bn_runner(batchnorm, calls, kind))
+               for kind in TURN_KERNELS},
+            "bn_calls": len(calls)}
+
+
+def kernel_turns(old: str, card: str) -> dict:
+    """The fuser, bn_bwd_reduce and bn_stats of an earlier checkout ``old``
+    against this tree's, in four child processes on one card: old, new,
+    new, old. Each child prints one JSON line; so does each turn here."""
+    new = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(old, "rot_mvgaze_tpu_torch")):
+        raise RuntimeError(f"{old} holds no rot_mvgaze_tpu_torch")
+    shapes_file = os.path.join(new, "build", "turn_bn_shapes.json")
+    os.makedirs(os.path.dirname(shapes_file), exist_ok=True)
+    with open(shapes_file, "w") as f:
+        json.dump(step_bn_shapes(), f)
+    turns = []
+    for label, tree in (("old", old), ("new", new), ("new", new), ("old", old)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn", tree, "--shapes", shapes_file],
+            capture_output=True, text=True, cwd=tree, timeout=900,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} turn failed:\n{proc.stdout}\n{proc.stderr}")
+        record = {"turn": label, **json.loads(proc.stdout.strip().splitlines()[-1]),
+                  "seconds": time.perf_counter() - t0}
+        print(json.dumps(record), flush=True)
+        turns.append(record)
+    return {"kernel_turns": turns, "card": card}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", default=None, metavar="DIR",
+                    help="instead of the phases above, time an earlier checkout's fuser, "
+                         "bn_bwd_reduce and bn_stats against this tree's, in turns")
+    ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card", file=sys.stderr)
         return 1
+    if args.turn:
+        print(json.dumps(run_turn(os.path.abspath(args.turn), args.shapes)), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.old:
+        print(json.dumps(kernel_turns(os.path.abspath(args.old), card)), flush=True)
+        return 0
 
     from rot_mvgaze_tpu_torch.kernels import build
     from rot_mvgaze_tpu_torch.ops import batchnorm, conv_bn, fusion
@@ -1001,6 +1217,7 @@ def main() -> int:
     serve = time_serving(served["predictor"], served["request"])
     breakdown = profile_serving(served["predictor"], served["request"])
     served_launches = served["launches"]
+    served_variants = served["by_variant"]
     del served
     torch.cuda.empty_cache()
 
@@ -1027,7 +1244,8 @@ def main() -> int:
         ("train_bn_grad_layout_copies", trained["grad_copies"], "copies over 10 steps"),
     ] + [
         (f"{kind}_{key}_per_step", t[key], "ms over the step's 106 calls")
-        for kind, t in bn_timing.items() for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+        for kind, t in bn_timing.items()
+        for key in ("ms", "plain_ms", "library_ms", "library_pair_ms", "bound_ms")
     ]:
         print(json.dumps({"metric": metric, "value": value, "unit": unit, **tag}), flush=True)
 
@@ -1035,6 +1253,8 @@ def main() -> int:
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"]},
+        "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
+                                for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1055,6 +1275,8 @@ def main() -> int:
         "bound_by": bn_timing[kind]["bound_by"],
         "library_ms": bn_timing[kind]["library_ms"],
         "library_covers": bn_timing[kind]["library_covers"],
+        "library_pair_ms": bn_timing[kind]["library_pair_ms"],
+        "library_pair_covers": bn_timing[kind]["library_pair_covers"],
         "timed_over": "the 106 BN calls of one R50 step at 64 pairs, bf16",
     } for kind, replaces in BN_KERNELS.items()] + [{
         **CONV,

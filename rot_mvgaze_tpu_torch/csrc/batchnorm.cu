@@ -36,17 +36,28 @@
 //   SM count (ops/batchnorm.py::plan), so 3,136 x 2,048 (layer 4) fills the
 //   card as well as 802,816 x 64 (stem) does.
 // - The reductions never carry a sum across blocks in launch order (the
-//   TPU's sequential grid) and use no float atomics: each thread sums its
-//   rows in f64, each block writes f64 partials of at most 4,096 rows, and
-//   the last block of a channel tile (a per-tile counter, reset by that
-//   block) adds them in chunk order, so results are deterministic. The same
-//   block finishes the per-channel epilogue, so a forward is 2 launches and
-//   a backward 2. f64 adds are cheap next to the bytes (H100: 34 TFLOP/s).
+//   TPU's sequential grid) and use no float atomics. They run 128-thread
+//   blocks over channel tiles of at most 8 lanes; each thread sums its rows
+//   in f64; the block adds its rows by warp shuffles and its 4 warps in
+//   order; each block writes an f64 partial; the last block of each group of
+//   16 chunks adds the group's partials in chunk order, and the last group
+//   of a tile adds the groups' sums (reduce_partials). Every order is fixed,
+//   so results are deterministic, and no block adds more than a few dozen
+//   partials after the others finish. The finishing block also computes the
+//   per-channel epilogue, so a forward is 2 launches and a backward 2. f64
+//   adds are cheap next to the bytes (H100: 34 TFLOP/s).
+// - bn_bwd_reduce issues 2 rows (bf16; 4 for f32) of g, x and y before it
+//   adds any and fits 5 blocks per SM; the plan launches a wave of 4, so
+//   49 KB (bf16 under ReLU) to 98 KB (f32) per SM are in flight. That beat,
+//   on the H100 over the step's 106 calls, 6 blocks (74 KB, with spills),
+//   4 rows at 4 blocks, and 1 row at 8.
 // - var = E[x^2] - E[x]^2 (the JAX formula) is formed in f64 from f64
 //   sums: the cancellation costs the f64 mantissa, not f32's.
 // - A ragged C, or a pointer that is not 16-byte aligned, takes a masked
 //   scalar path with the same thread layout.
 // No TMA, no cp.async pipeline, and the forward reads x twice.
+// bn_stats keeps one row in flight per thread (a single-pass forward is
+// queued); it shares reduce_partials and so the reductions' launch shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,7 +127,8 @@ __device__ __forceinline__ void load_c(float (&out)[V], const float* p, int c0, 
 // The launch shape shared by the four kernels: block (chunk, tile) covers rows
 // [chunk*chunk_rows, +chunk_rows) and channels [tile*lanes*V, +lanes*V);
 // thread t owns channels c0 = (tile*lanes + t%lanes)*V .. +V and rows
-// t/lanes, t/lanes + NT/lanes, ... of the chunk.
+// t/lanes, t/lanes + NTHREADS/lanes, ... of the chunk. The reductions also
+// use `groups`: their chunks' partials are summed in groups of kGroup.
 struct Shape {
   long long rows;
   int C;
@@ -124,6 +136,7 @@ struct Shape {
   long long chunk_rows;
   int chunks;
   int vec;
+  int groups;
 };
 
 struct Coords {
@@ -132,97 +145,126 @@ struct Coords {
   int rstep;
 };
 
-template <int V>
+template <int V, int NTHREADS>
 __device__ __forceinline__ Coords coords(const Shape& s) {
   Coords k;
   const int lane = threadIdx.x % s.lanes;
   k.c0 = (blockIdx.y * s.lanes + lane) * V;
-  k.rstep = NT / s.lanes;
+  k.rstep = NTHREADS / s.lanes;
   const long long chunk0 = (long long)blockIdx.x * s.chunk_rows;
   k.r_begin = chunk0 + threadIdx.x / s.lanes;
   k.r_end = min(s.rows, chunk0 + s.chunk_rows);
   return k;
 }
 
-// Block-wide sum of each thread's V-wide (a, b) pair over its row lane, then
-// the f64 partial of this block into ws (2, chunks, C). Returns true in the
-// one block per channel tile that arrives last; its threads j < lanes*V then
-// hold channel tile*lanes*V + j's totals in sa/sb (in chunk order).
+// The reductions (bn_stats, bn_bwd_reduce) run NTR threads per block and at
+// most kMaxReduceLanes lanes, so a channel tile is at most 64 bf16 or 32 f32
+// channels and a warp spans at least 4 rows.
+constexpr int NTR = 128;
+constexpr int kMaxReduceLanes = 8;
+constexpr int kGroup = 16;  // chunk partials per first-level group
+constexpr int kMaxWidth = kMaxReduceLanes * 8;
+
+// Sum of up to kGroup f64 values src[0], src[stride], ... (n of them), all
+// loads issued before the first add; added in index order.
+__device__ __forceinline__ double sum_run(const double* src, size_t stride, int n) {
+  double v[kGroup];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) v[u] = u < n ? __ldcg(src + u * stride) : 0.0;
+  double t = v[0];
+#pragma unroll
+  for (int u = 1; u < kGroup; ++u)
+    if (u < n) t += v[u];
+  return t;
+}
+
+// Deterministic sum over all rows of each thread's V-wide (a, b) pair, in
+// three levels with a fixed order and no float atomics:
+// 1. the block: warp shuffles over a warp's rows (a fixed tree), then the
+//    warps in order through 4 KB of shared memory; the block's f64 partial
+//    goes to ws (2, chunks, C);
+// 2. each group of kGroup chunks: its last block to arrive (a counter per
+//    group) adds the group's partials in chunk order into ws2 (2, groups, C);
+// 3. the tile: the last group to finish (one more counter) adds the groups'
+//    sums in group order, 16 at a time.
+// Counters are (tiles, groups + 1) ints, zero on entry; the block that
+// reads a counter last resets it. Returns true in the one block per channel
+// tile that finished level 3 (level 2 when there is one group); its threads
+// j < lanes*V then hold channel tile*lanes*V + j's totals in sa/sb.
 template <int V>
-__device__ bool reduce_partials(const Shape& s, const double (&a)[V], const double (&b)[V],
-                                double* ws, int* counters, double& sa, double& sb) {
-  __shared__ double red_a[NT * V];
-  __shared__ double red_b[NT * V];
+__device__ bool reduce_partials(const Shape& s, double (&a)[V], double (&b)[V], double* ws,
+                                int* counters, double& sa, double& sb) {
+  __shared__ double red[NTR / 32][2][kMaxWidth];
+  __shared__ double total[2][kMaxWidth];
   __shared__ int is_last;
+  const int width = s.lanes * V;  // channels in this tile
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    red_a[threadIdx.x * V + e] = a[e];
-    red_b[threadIdx.x * V + e] = b[e];
+    for (int off = s.lanes; off < 32; off <<= 1) {
+      a[e] += __shfl_down_sync(0xffffffffu, a[e], off);
+      b[e] += __shfl_down_sync(0xffffffffu, b[e], off);
+    }
+  }
+  if (lane < s.lanes) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      red[warp][0][lane * V + e] = a[e];
+      red[warp][1][lane * V + e] = b[e];
+    }
   }
   __syncthreads();
-  const int width = s.lanes * V;  // channels in this tile
-  const int rstep = NT / s.lanes;
+  // thread j < 2*width owns value j: kind j / width (a or b), channel j % width
   const int j = threadIdx.x;
-  const int c = blockIdx.y * width + j;
+  const int kind = j / width, jc = j - kind * width;
+  const int c = blockIdx.y * width + jc;
+  const bool owner = j < 2 * width && c < s.C;
   const size_t plane = (size_t)s.chunks * s.C;
-  if (j < width && c < s.C) {
-    double pa = 0.0, pb = 0.0;
-    for (int r = 0; r < rstep; ++r) {
-      pa += red_a[r * width + j];
-      pb += red_b[r * width + j];
-    }
-    ws[(size_t)blockIdx.x * s.C + c] = pa;
-    ws[plane + (size_t)blockIdx.x * s.C + c] = pb;
+  double* ws2 = ws + 2 * plane;
+  const size_t plane2 = (size_t)s.groups * s.C;
+  if (owner) {
+    double t = red[0][kind][jc];
+#pragma unroll
+    for (int w = 1; w < NTR / 32; ++w) t += red[w][kind][jc];
+    ws[kind * plane + (size_t)blockIdx.x * s.C + c] = t;
   }
+  int* cnt = counters + blockIdx.y * (s.groups + 1);
+  const int g = blockIdx.x / kGroup;
+  const int g_first = g * kGroup, g_n = min(kGroup, s.chunks - g_first);
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) is_last = (atomicAdd(&counters[blockIdx.y], 1) == s.chunks - 1);
+  if (threadIdx.x == 0) is_last = (atomicAdd(&cnt[g], 1) == g_n - 1);
   __syncthreads();
   if (!is_last) return false;
   __threadfence();
-  // The last block sums the partials: NT/width threads per channel, each over
-  // a contiguous run of chunks in order, 8 loads in flight at a time; then
-  // thread j < width adds the runs in order. The order is fixed, so the
-  // result is deterministic.
-  const int per_c = NT / width;
-  const int q = j / width, jc = j % width;
-  const int cc = blockIdx.y * width + jc;
-  const int run = (s.chunks + per_c - 1) / per_c;
-  const int z_end = min(s.chunks, (q + 1) * run);
-  double ra = 0.0, rb = 0.0;
-  if (cc < s.C) {
-    int z = q * run;
-    for (; z + 8 <= z_end; z += 8) {
-      double va[8], vb[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        va[u] = __ldcg(ws + (size_t)(z + u) * s.C + cc);
-        vb[u] = __ldcg(ws + plane + (size_t)(z + u) * s.C + cc);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        ra += va[u];
-        rb += vb[u];
-      }
+  // level 2: this group's partials in chunk order
+  double t = 0.0;
+  if (owner) t = sum_run(ws + kind * plane + (size_t)g_first * s.C + c, s.C, g_n);
+  if (threadIdx.x == 0) cnt[g] = 0;
+  if (s.groups > 1) {
+    if (owner) ws2[kind * plane2 + (size_t)g * s.C + c] = t;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) is_last = (atomicAdd(&cnt[s.groups], 1) == s.groups - 1);
+    __syncthreads();
+    if (!is_last) return false;
+    __threadfence();
+    // level 3: the groups' sums in group order, kGroup loads in flight
+    if (owner) {
+      const double* src = ws2 + kind * plane2 + c;
+      t = sum_run(src, s.C, min(kGroup, s.groups));
+      for (int g0 = kGroup; g0 < s.groups; g0 += kGroup)
+        t += sum_run(src + (size_t)g0 * s.C, s.C, min(kGroup, s.groups - g0));
     }
-    for (; z < z_end; ++z) {
-      ra += __ldcg(ws + (size_t)z * s.C + cc);
-      rb += __ldcg(ws + plane + (size_t)z * s.C + cc);
-    }
+    if (threadIdx.x == 0) cnt[s.groups] = 0;
   }
-  __syncthreads();  // red_a / red_b are reused below
-  red_a[j] = ra;
-  red_b[j] = rb;
+  if (owner) total[kind][jc] = t;
   __syncthreads();
-  sa = 0.0;
-  sb = 0.0;
-  if (j < width) {
-    for (int u = 0; u < per_c; ++u) {
-      sa += red_a[u * width + j];
-      sb += red_b[u * width + j];
-    }
+  sa = sb = 0.0;
+  if (j < width && blockIdx.y * width + j < s.C) {
+    sa = total[0][j];
+    sb = total[1][j];
   }
-  if (threadIdx.x == 0) counters[blockIdx.y] = 0;  // ready for the next launch
   return true;
 }
 
@@ -241,9 +283,9 @@ struct StatsArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NT) bn_stats_kernel(const Shape s, const StatsArgs p) {
+__global__ void __launch_bounds__(NTR) bn_stats_kernel(const Shape s, const StatsArgs p) {
   constexpr int V = Width<T>::V;
-  const Coords k = coords<V>(s);
+  const Coords k = coords<V, NTR>(s);
   const T* x = static_cast<const T*>(p.x);
   double sum[V], sq[V];
 #pragma unroll
@@ -287,7 +329,7 @@ struct ApplyArgs {
 template <typename T, bool RES, bool RELU>
 __global__ void __launch_bounds__(NT) bn_apply_kernel(const Shape s, const ApplyArgs p) {
   constexpr int V = Width<T>::V;
-  const Coords k = coords<V>(s);
+  const Coords k = coords<V, NT>(s);
   if (k.c0 >= s.C) return;
   const T* x = static_cast<const T*>(p.x);
   const T* res = static_cast<const T*>(p.res);
@@ -328,10 +370,40 @@ struct BwdReduceArgs {
   float *dscale, *dbias, *k, *mg, *mgx;
 };
 
+// Rows in flight per thread in bn_bwd_reduce: 2 rows of 16 bytes of g, x
+// (and y) for bf16, 4 for f32, within the registers that let 5 blocks of
+// NTR threads share an SM (at most 102 a thread: 95 used, no spills). A
+// sweep on the H100 over 1-4 rows and 3-8 blocks found this the fastest over
+// the step's 106 calls; 6 blocks spilled.
+constexpr int kBwdReduceMinBlocks = 5;
+template <typename T>
+struct ReduceUnroll {
+  static constexpr int U = sizeof(T) == 2 ? 2 : 4;
+};
+
+// 16 bytes of T at base[off..), zeros for channels c0+e >= C (scalar loads
+// when `vec` is 0).
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* base, long long off, int c0, int C, int vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(base + off));
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  T* t = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < Width<T>::V; ++e)
+    if (c0 + e < C) t[e] = base[off + e];
+  return raw;
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int e) {
+  return to_f(reinterpret_cast<const T*>(&raw)[e]);
+}
+
 template <typename T, bool RELU>
-__global__ void __launch_bounds__(NT) bn_bwd_reduce_kernel(const Shape s, const BwdReduceArgs p) {
+__global__ void __launch_bounds__(NTR, kBwdReduceMinBlocks) bn_bwd_reduce_kernel(const Shape s, const BwdReduceArgs p) {
   constexpr int V = Width<T>::V;
-  const Coords k = coords<V>(s);
+  constexpr int U = ReduceUnroll<T>::U;
+  const Coords k = coords<V, NTR>(s);
   const T* g = static_cast<const T*>(p.g);
   const T* y = static_cast<const T*>(p.y);
   const T* x = static_cast<const T*>(p.x);
@@ -342,21 +414,31 @@ __global__ void __launch_bounds__(NT) bn_bwd_reduce_kernel(const Shape s, const 
     float m[V], rs[V];
     load_c<V>(m, p.mean, k.c0, s.C);
     load_c<V>(rs, p.rstd, k.c0, s.C);
-    for (long long r = k.r_begin; r < k.r_end; r += k.rstep) {
-      const long long off = r * s.C + k.c0;
-      float gv[V], xv[V];
-      load_v<T>(gv, g, off, k.c0, s.C, s.vec);
-      load_v<T>(xv, x, off, k.c0, s.C, s.vec);
-      if (RELU) {
-        float yv[V];
-        load_v<T>(yv, y, off, k.c0, s.C, s.vec);
+    const long long step = (long long)U * k.rstep;
+    for (long long r = k.r_begin; r < k.r_end; r += step) {
+      // U rows' loads first, then the sums in row order
+      uint4 graw[U], xraw[U], yraw[U];
 #pragma unroll
-        for (int e = 0; e < V; ++e) gv[e] = yv[e] > 0.f ? gv[e] : 0.f;
+      for (int u = 0; u < U; ++u) {
+        const long long rr = r + (long long)u * k.rstep;
+        if (rr < k.r_end) {
+          const long long off = rr * s.C + k.c0;
+          graw[u] = load_raw<T>(g, off, k.c0, s.C, s.vec);
+          xraw[u] = load_raw<T>(x, off, k.c0, s.C, s.vec);
+          if (RELU) yraw[u] = load_raw<T>(y, off, k.c0, s.C, s.vec);
+        }
       }
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        sg[e] += (double)gv[e];
-        sgx[e] += (double)__fmul_rn(gv[e], __fmul_rn(__fsub_rn(xv[e], m[e]), rs[e]));
+      for (int u = 0; u < U; ++u) {
+        if (r + (long long)u * k.rstep >= k.r_end) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          float gv = elem<T>(graw[u], e);
+          if (RELU) gv = elem<T>(yraw[u], e) > 0.f ? gv : 0.f;
+          const float xv = elem<T>(xraw[u], e);
+          sg[e] += (double)gv;
+          sgx[e] += (double)__fmul_rn(gv, __fmul_rn(__fsub_rn(xv, m[e]), rs[e]));
+        }
       }
     }
   }
@@ -391,7 +473,7 @@ struct BwdDxArgs {
 template <typename T, bool RELU>
 __global__ void __launch_bounds__(NT) bn_bwd_dx_kernel(const Shape s, const BwdDxArgs p) {
   constexpr int V = Width<T>::V;
-  const Coords k = coords<V>(s);
+  const Coords k = coords<V, NT>(s);
   if (k.c0 >= s.C) return;
   const T* g = static_cast<const T*>(p.g);
   const T* y = static_cast<const T*>(p.y);
@@ -444,9 +526,11 @@ dim3 grid_of(const Shape& s, int V) {
   return dim3(s.chunks, tiles);
 }
 
-int check_shape(const Shape& s) {
-  if (s.rows <= 0 || s.C <= 0 || s.lanes <= 0 || s.lanes > 32 || NT % s.lanes != 0 ||
-      s.chunks <= 0 || s.chunk_rows <= 0 || (long long)s.chunks * s.chunk_rows < s.rows)
+int check_shape(const Shape& s, bool reduce) {
+  const int max_lanes = reduce ? kMaxReduceLanes : 32;
+  if (s.rows <= 0 || s.C <= 0 || s.lanes <= 0 || s.lanes > max_lanes || NT % s.lanes != 0 ||
+      s.chunks <= 0 || s.chunk_rows <= 0 || (long long)s.chunks * s.chunk_rows < s.rows ||
+      (reduce && s.groups != (s.chunks + kGroup - 1) / kGroup))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
@@ -460,23 +544,31 @@ extern "C" {
 // Threads per block, for the host-side planner to agree with.
 int mvgaze_bn_threads() { return NT; }
 
+// The reductions' threads per block, most lanes and chunks per group.
+int mvgaze_bn_reduce_config(int* threads, int* max_lanes, int* group) {
+  *threads = NTR;
+  *max_lanes = kMaxReduceLanes;
+  *group = kGroup;
+  return 0;
+}
+
 // Every function launches on `stream` and returns the cudaError_t of the
 // launch (0 = success). dtype: 0 = float32, 1 = bfloat16 (the (rows, C)
-// tensors). ws holds 2*chunks*C doubles; counters one int per channel tile,
-// zero on entry and left zero.
+// tensors). For the reductions, ws holds 2*(chunks + groups)*C doubles and
+// counters (tiles, groups + 1) ints, zero on entry and left zero.
 
 int mvgaze_bn_stats(int dtype, const void* x, const float* scale, const float* bias, double* ws,
                     int* counters, float* mean, float* var, float* rstd, float* a, float* b,
                     long long rows, int C, int lanes, long long chunk_rows, int chunks, int vec,
-                    float eps, void* stream) {
-  const Shape s{rows, C, lanes, chunk_rows, chunks, vec};
-  if (int err = check_shape(s)) return err;
+                    int groups, float eps, void* stream) {
+  const Shape s{rows, C, lanes, chunk_rows, chunks, vec, groups};
+  if (int err = check_shape(s, true)) return err;
   const StatsArgs p{x, scale, bias, ws, counters, mean, var, rstd, a, b, eps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    bn_stats_kernel<bf16><<<grid_of(s, Width<bf16>::V), NT, 0, st>>>(s, p);
+    bn_stats_kernel<bf16><<<grid_of(s, Width<bf16>::V), NTR, 0, st>>>(s, p);
   else if (dtype == 0)
-    bn_stats_kernel<float><<<grid_of(s, Width<float>::V), NT, 0, st>>>(s, p);
+    bn_stats_kernel<float><<<grid_of(s, Width<float>::V), NTR, 0, st>>>(s, p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return last_error();
@@ -485,8 +577,8 @@ int mvgaze_bn_stats(int dtype, const void* x, const float* scale, const float* b
 int mvgaze_bn_apply(int dtype, const void* x, const void* res, const float* a, const float* b,
                     void* y, long long rows, int C, int lanes, long long chunk_rows, int chunks,
                     int vec, int relu, void* stream) {
-  const Shape s{rows, C, lanes, chunk_rows, chunks, vec};
-  if (int err = check_shape(s)) return err;
+  const Shape s{rows, C, lanes, chunk_rows, chunks, vec, 0};
+  if (int err = check_shape(s, false)) return err;
   const ApplyArgs p{x, res, a, b, y};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int variant = (res != nullptr ? 2 : 0) + (relu ? 1 : 0);
@@ -514,19 +606,19 @@ int mvgaze_bn_bwd_reduce(int dtype, const void* g, const void* y, const void* x,
                          const float* mean, const float* rstd, const float* scale, double* ws,
                          int* counters, float* dscale, float* dbias, float* k, float* mg,
                          float* mgx, long long rows, int C, int lanes, long long chunk_rows,
-                         int chunks, int vec, int relu, void* stream) {
-  const Shape s{rows, C, lanes, chunk_rows, chunks, vec};
-  if (int err = check_shape(s)) return err;
+                         int chunks, int vec, int groups, int relu, void* stream) {
+  const Shape s{rows, C, lanes, chunk_rows, chunks, vec, groups};
+  if (int err = check_shape(s, true)) return err;
   const BwdReduceArgs p{g, y, x, mean, rstd, scale, ws, counters, dscale, dbias, k, mg, mgx};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const dim3 grid = grid_of(s, Width<bf16>::V);
-    if (relu) bn_bwd_reduce_kernel<bf16, true><<<grid, NT, 0, st>>>(s, p);
-    else bn_bwd_reduce_kernel<bf16, false><<<grid, NT, 0, st>>>(s, p);
+    if (relu) bn_bwd_reduce_kernel<bf16, true><<<grid, NTR, 0, st>>>(s, p);
+    else bn_bwd_reduce_kernel<bf16, false><<<grid, NTR, 0, st>>>(s, p);
   } else if (dtype == 0) {
     const dim3 grid = grid_of(s, Width<float>::V);
-    if (relu) bn_bwd_reduce_kernel<float, true><<<grid, NT, 0, st>>>(s, p);
-    else bn_bwd_reduce_kernel<float, false><<<grid, NT, 0, st>>>(s, p);
+    if (relu) bn_bwd_reduce_kernel<float, true><<<grid, NTR, 0, st>>>(s, p);
+    else bn_bwd_reduce_kernel<float, false><<<grid, NTR, 0, st>>>(s, p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -538,8 +630,8 @@ int mvgaze_bn_bwd_dx(int dtype, const void* g, const void* y, const void* x, con
                      const float* gmean, const float* gvar, void* dx, void* dres,
                      long long rows, int C, int lanes, long long chunk_rows, int chunks,
                      int vec, int relu, void* stream) {
-  const Shape s{rows, C, lanes, chunk_rows, chunks, vec};
-  if (int err = check_shape(s)) return err;
+  const Shape s{rows, C, lanes, chunk_rows, chunks, vec, 0};
+  if (int err = check_shape(s, false)) return err;
   const BwdDxArgs p{g, y, x, mean, rstd, k, mg, mgx, gmean, gvar, dx, dres};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {

@@ -1,5 +1,8 @@
 // Rotate + concat + GEMM + bias + ReLU: layer 1 of the rotation-constrained
-// feature fuser, for Hopper (sm_90a).
+// feature fuser, for Hopper (sm_90a); the generic variant. It takes float32,
+// and the bf16 shapes csrc/fusion_wgmma.cu does not (D or V not a multiple
+// of 64, or a pointer that is not 16-byte aligned);
+// ops/fusion.py::choose_variant decides.
 //
 //   h[b,:] = relu( img[b,:] @ W1[:, :D]^T
 //                  + sum_i (sum_j R[b,i,j] * feat[b,j,:]) @ W1[:, D+iV : D+(i+1)V]^T
@@ -25,8 +28,9 @@
 // - Split-K fills the card: the 56 column tiles alone would occupy fewer than
 //   half of the 132 SMs and keep too few loads in flight. The wrapper splits
 //   K so that about four blocks run per SM. Each block writes an f32 partial;
-//   the last block of a tile to finish (a counter per tile) adds the partials
-//   in split order (deterministic), then applies bias and ReLU.
+//   the last block of a tile to finish (a counter per tile, in a persistent
+//   buffer the block resets) adds the partials in split order
+//   (deterministic), then applies bias and ReLU.
 // - The concat is never materialised: for k >= D the A-tile load computes
 //   A[b,k] = sum_j R[b,(k-D)/V,j] * feat[b,j,(k-D)%V] in f32 and rounds it.
 // - bf16 runs on the tensor cores (wmma 16x16x16, f32 accumulate); f32 runs

@@ -26,20 +26,27 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from rot_mvgaze_tpu_torch.kernels.counters import tile_counters
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # must agree with NT in csrc/batchnorm.cu (checked at load)
+# the reductions' threads per block, most lanes and chunks per first-level
+# group: must agree with NTR, kMaxReduceLanes and kGroup (checked at load)
+_REDUCE_THREADS, _REDUCE_MAX_LANES, REDUCE_GROUP = 128, 8, 16
 # at most this many rows go into one block's partial sums
 MAX_CHUNK_ROWS = 4096
 # blocks per SM the planner aims at: the elementwise kernels (46-54
-# registers) over-subscribe for tail balance; the reductions (70-80
-# registers, 32 KB of shared memory: 3 resident) take one wave, so that the
-# last block of a tile has few partials to add
+# registers) over-subscribe for tail balance; the reductions take one wave
+# of fewer blocks than fit an SM (bn_stats: 72 registers, 7 fit; bn_bwd_reduce:
+# at most 96 registers, 5 fit), so that fewer partials are left to add
+# (the fastest over the step's 106 calls in a sweep of 3-8 per SM on the H100)
 _BLOCKS_PER_SM = 8
-_REDUCE_BLOCKS_PER_SM = 3
+STATS_BLOCKS_PER_SM = 6
+BWD_REDUCE_BLOCKS_PER_SM = 4
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +150,28 @@ def plan(
     return lanes, chunk_rows, math.ceil(rows / chunk_rows), tiles
 
 
+def plan_reduce(
+    rows: int, c: int, itemsize: int, n_sm: int, blocks_per_sm: int
+) -> Tuple[int, int, int, int, int]:
+    """Launch plan ``(lanes, chunk_rows, chunks, tiles, groups)`` of a
+    reduction (bn_stats, bn_bwd_reduce) over (rows, C).
+
+    As :func:`plan`, with 128-thread blocks, at most 8 lanes (a channel tile
+    of at most 64 bf16 or 32 f32 channels), and one wave of about
+    ``blocks_per_sm`` blocks per SM over all tiles; the chunks' partials are
+    summed in ``groups`` of 16. At the stem (802,816 x 64 bf16, 132 SMs, 4
+    blocks per SM): 8 lanes, 1 tile, 523 chunks of 1,536 rows in 33 groups."""
+    v = 16 // itemsize
+    lanes = min(_REDUCE_MAX_LANES, 1 << max(0, math.ceil(math.log2(math.ceil(c / v)))))
+    rstep = _REDUCE_THREADS // lanes
+    tiles = math.ceil(c / (lanes * v))
+    want = max(1, math.ceil(blocks_per_sm * n_sm / tiles), math.ceil(rows / MAX_CHUNK_ROWS))
+    chunks = max(1, min(want, math.ceil(rows / rstep)))
+    chunk_rows = math.ceil(math.ceil(rows / chunks) / rstep) * rstep
+    chunks = math.ceil(rows / chunk_rows)
+    return lanes, chunk_rows, chunks, tiles, math.ceil(chunks / REDUCE_GROUP)
+
+
 @functools.cache
 def _lib():
     from rot_mvgaze_tpu_torch.kernels.build import library
@@ -155,12 +184,21 @@ def _lib():
             f"csrc/batchnorm.cu runs {lib.mvgaze_bn_threads()} threads per block, "
             f"ops/batchnorm.py plans for {_THREADS}"
         )
+    cfg = [ctypes.c_int() for _ in range(3)]
+    lib.mvgaze_bn_reduce_config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mvgaze_bn_reduce_config.restype = ctypes.c_int
+    lib.mvgaze_bn_reduce_config(*map(ctypes.byref, cfg))
+    want = (_REDUCE_THREADS, _REDUCE_MAX_LANES, REDUCE_GROUP)
+    if tuple(v.value for v in cfg) != want:
+        raise RuntimeError(
+            f"csrc/batchnorm.cu reductions {[v.value for v in cfg]} != ops/batchnorm.py's {want}"
+        )
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     shape = [ll, i, i, ll, i, i]  # rows, C, lanes, chunk_rows, chunks, vec
     signatures = {
-        "mvgaze_bn_stats": [i] + [p] * 10 + shape + [f, p],
+        "mvgaze_bn_stats": [i] + [p] * 10 + shape + [i, f, p],
         "mvgaze_bn_apply": [i] + [p] * 5 + shape + [i, p],
-        "mvgaze_bn_bwd_reduce": [i] + [p] * 13 + shape + [i, p],
+        "mvgaze_bn_bwd_reduce": [i] + [p] * 13 + shape + [i, i, p],
         "mvgaze_bn_bwd_dx": [i] + [p] * 12 + shape + [i, p],
     }
     for name, argtypes in signatures.items():
@@ -168,24 +206,6 @@ def _lib():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
-
-
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
-    """Per-tile arrival counters of the kernels that finish a reduction in
-    their last block (the reductions here, ``ops/conv_bn.py``), one zeroed
-    buffer per (device, stream). The last block of a tile resets its
-    counter, so the buffer stays zero between launches and needs no fill per
-    call; launches on one stream run in order, so they can share it."""
-    stream = torch.cuda.current_stream(device)
-    key = (device.index, stream.cuda_stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -216,9 +236,11 @@ def _check_vectors(x2: torch.Tensor, **vectors: Optional[torch.Tensor]) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_setup(x2: torch.Tensor, *rows: Optional[torch.Tensor], reduce: bool = False):
-    """Checks and launch arguments shared by the four wrappers; returns
-    None for a CPU tensor (the caller then runs the plain version)."""
+def _launch_setup(x2: torch.Tensor, *rows: Optional[torch.Tensor], reduce: int = 0):
+    """Checks and launch arguments shared by the four wrappers: ``(shape,
+    tiles, chunks, groups)`` (``groups`` 0 for the elementwise passes), or
+    None for a CPU tensor (the caller then runs the plain version).
+    ``reduce`` is a reduction's blocks per SM, 0 for an elementwise pass."""
     if x2.dim() != 2 or x2.shape[0] == 0 or x2.shape[1] == 0:
         raise ValueError(f"x must be a non-empty (rows, C) view, got {tuple(x2.shape)}")
     if x2.dtype not in _DTYPE_CODES:
@@ -231,13 +253,18 @@ def _launch_setup(x2: torch.Tensor, *rows: Optional[torch.Tensor], reduce: bool 
         raise ValueError(f"unsupported device {x2.device}")
     n_sm = torch.cuda.get_device_properties(x2.device).multi_processor_count
     rows_, c = x2.shape
-    per_sm = _REDUCE_BLOCKS_PER_SM if reduce else _BLOCKS_PER_SM
-    lanes, chunk_rows, chunks, tiles = plan(rows_, c, x2.element_size(), n_sm, per_sm)
+    if reduce:
+        lanes, chunk_rows, chunks, tiles, groups = plan_reduce(
+            rows_, c, x2.element_size(), n_sm, reduce
+        )
+    else:
+        lanes, chunk_rows, chunks, tiles = plan(rows_, c, x2.element_size(), n_sm)
+        groups = 0
     v = 16 // x2.element_size()
     tensors = (x2,) + tuple(t for t in rows if t is not None)
     vec = int(c % v == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
     shape = [rows_, c, lanes, chunk_rows, chunks, vec]
-    return shape, tiles, chunks
+    return shape, tiles, chunks, groups
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -253,18 +280,18 @@ def _raise_on(err: int, name: str) -> None:
 def bn_stats(x2, scale, bias, eps):
     """(mean, var, rstd, a, b), each float32 (C,), of the (rows, C) x."""
     _check_vectors(x2, scale=scale, bias=bias)
-    setup = _launch_setup(x2, reduce=True)
+    setup = _launch_setup(x2, reduce=STATS_BLOCKS_PER_SM)
     if setup is None:
         return bn_stats_reference(x2, scale, bias, eps)
-    shape, tiles, chunks = setup
+    shape, tiles, chunks, groups = setup
     c = x2.shape[1]
     outs = [torch.empty(c, dtype=torch.float32, device=x2.device) for _ in range(5)]
-    ws = torch.empty(2 * chunks * c, dtype=torch.float64, device=x2.device)
-    counters = tile_counters(x2.device, tiles)
+    ws = torch.empty(2 * (chunks + groups) * c, dtype=torch.float64, device=x2.device)
+    counters = tile_counters(x2.device, tiles * (groups + 1))
     with torch.cuda.device(x2.device):
         err = _lib().mvgaze_bn_stats(
             _DTYPE_CODES[x2.dtype], x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            ws.data_ptr(), counters.data_ptr(), *map(_ptr, outs), *shape, float(eps),
+            ws.data_ptr(), counters.data_ptr(), *map(_ptr, outs), *shape, groups, float(eps),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(err, "bn_stats")
@@ -280,7 +307,7 @@ def bn_apply(x2, a, b, res2, relu):
     setup = _launch_setup(x2, res2)
     if setup is None:
         return bn_apply_reference(x2, a, b, res2, relu)
-    shape, _, _ = setup
+    shape = setup[0]
     y2 = torch.empty_like(x2)
     with torch.cuda.device(x2.device):
         err = _lib().mvgaze_bn_apply(
@@ -300,19 +327,19 @@ def bn_bwd_reduce(g2, y2, x2, mean, rstd, scale, relu):
     if relu:
         _check_rows("y", y2, x2)
     _check_vectors(x2, mean=mean, rstd=rstd, scale=scale)
-    setup = _launch_setup(x2, g2, y2 if relu else None, reduce=True)
+    setup = _launch_setup(x2, g2, y2 if relu else None, reduce=BWD_REDUCE_BLOCKS_PER_SM)
     if setup is None:
         return bn_bwd_reduce_reference(g2, y2, x2, mean, rstd, scale, relu)
-    shape, tiles, chunks = setup
+    shape, tiles, chunks, groups = setup
     c = x2.shape[1]
     outs = [torch.empty(c, dtype=torch.float32, device=x2.device) for _ in range(5)]
-    ws = torch.empty(2 * chunks * c, dtype=torch.float64, device=x2.device)
-    counters = tile_counters(x2.device, tiles)
+    ws = torch.empty(2 * (chunks + groups) * c, dtype=torch.float64, device=x2.device)
+    counters = tile_counters(x2.device, tiles * (groups + 1))
     with torch.cuda.device(x2.device):
         err = _lib().mvgaze_bn_bwd_reduce(
             _DTYPE_CODES[x2.dtype], g2.data_ptr(), _ptr(y2) if relu else None, x2.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), *map(_ptr, outs), *shape, int(relu),
+            counters.data_ptr(), *map(_ptr, outs), *shape, groups, int(relu),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(err, "bn_bwd_reduce")
@@ -335,7 +362,7 @@ def bn_bwd_dx(g2, y2, x2, mean, rstd, k, mg, mgx, gmean, gvar, relu, want_dres):
         return bn_bwd_dx_reference(
             g2, y2, x2, mean, rstd, k, mg, mgx, gmean, gvar, relu, want_dres
         )
-    shape, _, _ = setup
+    shape = setup[0]
     dx = torch.empty_like(x2)
     dres = torch.empty_like(g2) if want_dres else None
     with torch.cuda.device(x2.device):

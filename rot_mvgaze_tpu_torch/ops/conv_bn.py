@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from rot_mvgaze_tpu_torch.ops.batchnorm import tile_counters
+from rot_mvgaze_tpu_torch.kernels.counters import tile_counters
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # must agree with BM/BN/BK in csrc/conv_bn.cu (checked when the library loads)

@@ -7,10 +7,15 @@ Per fusion iteration and view::
     h       = relu([img_feat ; rotated.flat] @ W1^T + b1)  # (B, D+3V) x (H, D+3V)
     out     = h @ W2^T + b2
 
-:func:`rotate_concat_matmul_relu` computes ``h`` with the hand-written CUDA
-kernel in ``csrc/fusion.cu`` for a CUDA tensor, and with its plain PyTorch
-version, :func:`rotate_concat_matmul_relu_reference`, for a CPU tensor. It
-never falls back: a CUDA call launches the kernel or raises.
+:func:`rotate_concat_matmul_relu` computes ``h`` with a hand-written CUDA
+kernel for a CUDA tensor, and with its plain PyTorch version,
+:func:`rotate_concat_matmul_relu_reference`, for a CPU tensor. Two kernel
+variants exist, chosen by dtype and shape alone (:func:`choose_variant`):
+``wgmma`` (``csrc/fusion_wgmma.cu``: bf16 on wgmma, W1 by TMA, split-K
+reduced in a thread block cluster) and ``generic`` (``csrc/fusion.cu``:
+float32 on the FMA units, and bf16 shapes the first does not take, on
+``wmma`` with split-K through a global f32 workspace). It never falls back:
+a CUDA call launches the chosen kernel or raises.
 :class:`RotateConcatMatmulRelu` makes it differentiable: its forward is that
 wrapper, its backward the JAX package's ``custom_vjp`` backward (plain
 products, as JAX leaves them to XLA). ``fused_image_feat_fuser`` adds layer 2
@@ -29,11 +34,15 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from rot_mvgaze_tpu_torch.kernels.counters import tile_counters
+
 # must agree with BM/BN/BK in csrc/fusion.cu (checked when the library loads)
 _BM, _BN, _BK = 64, 64, 32
-# split K until about this many blocks per SM are resident: with one block
-# per output tile the serving shape fills fewer than half of an H100's SMs
+# generic variant: split K until about this many blocks per SM are resident
 _BLOCKS_PER_SM = 4
+# must agree with BM/BK/kMaxCluster in csrc/fusion_wgmma.cu (checked at load)
+_WG_BM, _WG_BK, _WG_MAX_CLUSTER = 128, 64, 8
+VARIANTS = ("wgmma", "generic")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -90,7 +99,8 @@ def _check_inputs(img_feat, rot_feat, rot, w1, b1) -> Tuple[int, int, int, int]:
 
 
 def plan_splits(b: int, h: int, k: int, n_sm: int) -> Tuple[int, int]:
-    """Split-K plan ``(k_chunk, splits)`` for a (b, k) x (h, k) product.
+    """Split-K plan ``(k_chunk, splits)`` of the generic variant for a
+    (b, k) x (h, k) product.
 
     ``k_chunk`` is a multiple of the K tile, and ``splits = ceil(k /
     k_chunk)`` blocks share each output tile. At the serving shape (B=64,
@@ -102,8 +112,68 @@ def plan_splits(b: int, h: int, k: int, n_sm: int) -> Tuple[int, int]:
     return k_chunk, math.ceil(k / k_chunk)
 
 
+def plan_wgmma(b: int, d: int, v: int, h: int, n_sm: int) -> Tuple[int, int, int, int, int]:
+    """Launch plan ``(n_tile, m_tiles, n_tiles, splits, steps)`` of the
+    wgmma variant for img (b, d), feat (b, 3, v) and W1 (h, d + 3v).
+
+    Each block takes 128 rows of W1 (``m_tiles`` of them) against a batch
+    tile of ``n_tile`` rows (64 up to B = 64, else 128; ``n_tiles`` of them).
+    The ``splits`` blocks that share an output tile form one cluster (at
+    most 8), as many as fit beside the other tiles in one wave on ``n_sm``
+    SMs; block z takes every splits-th K step of 64 of the image part and
+    every splits-th v block (3 steps) of the rotated part, so the busiest
+    takes ``steps``. At the serving shape (B=64, D=2048, V=512, H=3584) on
+    132 SMs: 28 M-tiles x 4 splits of 8 image + 6 rotated steps, 112 blocks."""
+    n_tile = 64 if b <= 64 else 128
+    n_tiles = math.ceil(b / n_tile)
+    m_tiles = math.ceil(h / _WG_BM)
+    units = d // _WG_BK + v // _WG_BK  # image steps and v blocks
+    splits = max(1, min(_WG_MAX_CLUSTER, n_sm // (m_tiles * n_tiles), units))
+    steps = math.ceil(d // _WG_BK / splits) + 3 * math.ceil(v // _WG_BK / splits)
+    return n_tile, m_tiles, n_tiles, splits, steps
+
+
+def choose_variant(img_feat: torch.Tensor, rot_feat: torch.Tensor, w1: torch.Tensor) -> str:
+    """``"wgmma"`` for bf16 with D and V multiples of 64 (a K step of 64 is
+    then all image or all one rotation row) and 16-byte aligned
+    ``img_feat``, ``rot_feat`` and ``w1``: every shape the model uses (D in
+    {512, 2048}, V = 512, any B). ``"generic"`` otherwise: float32, and bf16
+    with D or V not a multiple of 64 or a pointer that is not 16-byte
+    aligned. Decided by dtype, shape and alignment alone, never by a failed
+    build or launch."""
+    d, v = img_feat.shape[1], rot_feat.shape[2]
+    if (
+        img_feat.dtype == torch.bfloat16
+        and d % _WG_BK == 0
+        and v % _WG_BK == 0
+        and all(t.data_ptr() % 16 == 0 for t in (img_feat, rot_feat, w1))
+    ):
+        return "wgmma"
+    return "generic"
+
+
 @functools.cache
-def _kernel_fn():
+def _wgmma_fn():
+    from rot_mvgaze_tpu_torch.kernels.build import library
+
+    lib = library()
+    tiles = [ctypes.c_int() for _ in range(3)]
+    lib.mvgaze_fusion_wgmma_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mvgaze_fusion_wgmma_tiles.restype = ctypes.c_int
+    lib.mvgaze_fusion_wgmma_tiles(*map(ctypes.byref, tiles))
+    if tuple(t.value for t in tiles) != (_WG_BM, _WG_BK, _WG_MAX_CLUSTER):
+        raise RuntimeError(
+            f"csrc/fusion_wgmma.cu tiles {[t.value for t in tiles]} != "
+            f"ops/fusion.py's {(_WG_BM, _WG_BK, _WG_MAX_CLUSTER)}"
+        )
+    fn = lib.mvgaze_fusion_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _generic_fn():
     from rot_mvgaze_tpu_torch.kernels.build import library
 
     lib = library()
@@ -138,8 +208,12 @@ def rotate_concat_matmul_relu(
 
     img_feat (B, D) · rot_feat (B, 3, V) · w1 (H, D+3V), all float32 or all
     bfloat16 · rot (B, 3, 3) float32 · b1 (H,) float32 -> (B, H) in the input
-    dtype. CUDA tensors run the kernel (counted in ``.launches``); CPU
-    tensors run :func:`rotate_concat_matmul_relu_reference`.
+    dtype. CUDA tensors run the kernel variant :func:`choose_variant` picks,
+    counted in ``.launches`` and ``.launches_by_variant``: ``wgmma`` for
+    bf16 with D and V multiples of 64 and 16-byte aligned ``img_feat``,
+    ``rot_feat`` and ``w1`` (every shape the model uses), ``generic`` for
+    float32 and for bf16 with D or V not a multiple of 64 or a misaligned
+    pointer. CPU tensors run :func:`rotate_concat_matmul_relu_reference`.
     """
     b, d, v, h = _check_inputs(img_feat, rot_feat, rot, w1, b1)
     device = img_feat.device
@@ -147,16 +221,38 @@ def rotate_concat_matmul_relu(
         return rotate_concat_matmul_relu_reference(img_feat, rot_feat, rot, w1, b1)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    fn = _kernel_fn()
-    k = d + 3 * v
+    variant = choose_variant(img_feat, rot_feat, w1)
     out = torch.empty((b, h), dtype=img_feat.dtype, device=device)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptrs = (img_feat.data_ptr(), rot_feat.data_ptr(), rot.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), out.data_ptr())
+    with torch.cuda.device(device):
+        if variant == "wgmma":
+            n_tile, _, _, splits, _ = plan_wgmma(b, d, v, h, n_sm)
+            err = _wgmma_fn()(*ptrs, b, d, v, h, n_tile, splits, stream)
+        else:
+            err = _launch_generic(ptrs, img_feat, rot_feat, w1, b, d, v, h, n_sm, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"rotate_concat_matmul_relu ({variant}) launch failed: cudaError_t {err}"
+        )
+    rotate_concat_matmul_relu.launches += 1
+    rotate_concat_matmul_relu.launches_by_variant[variant] += 1
+    return out
+
+
+def _launch_generic(ptrs, img_feat, rot_feat, w1, b, d, v, h, n_sm, stream) -> int:
+    """The generic variant's launch: split-K partials in an f32 workspace
+    (``torch.empty``: no fill), reduced by the last block of each output tile
+    through the persistent arrival counters of ``kernels/counters.py``,
+    which the kernel leaves zero."""
+    k = d + 3 * v
     k_chunk, splits = plan_splits(b, h, k, n_sm)
     ws = counters = None
     if splits > 1:
-        ws = torch.empty((splits, b, h), dtype=torch.float32, device=device)
-        tiles = math.ceil(h / _BN) * math.ceil(b / _BM)
-        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+        ws = torch.empty((splits, b, h), dtype=torch.float32, device=img_feat.device)
+        counters = tile_counters(img_feat.device, math.ceil(h / _BN) * math.ceil(b / _BM))
     # 16-byte loads need 16-byte aligned rows and chunks that never straddle
     # the image/rotated boundary or a rotation-row segment
     vec = int(
@@ -164,23 +260,16 @@ def rotate_concat_matmul_relu(
         and v % 8 == 0
         and all(t.data_ptr() % 16 == 0 for t in (img_feat, rot_feat, w1))
     )
-    with torch.cuda.device(device):
-        err = fn(
-            _DTYPE_CODES[img_feat.dtype],
-            img_feat.data_ptr(), rot_feat.data_ptr(), rot.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            b, d, v, h, k_chunk, splits, vec,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rotate_concat_matmul_relu launch failed: cudaError_t {err}")
-    rotate_concat_matmul_relu.launches += 1
-    return out
+    return _generic_fn()(
+        _DTYPE_CODES[img_feat.dtype], *ptrs,
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        b, d, v, h, k_chunk, splits, vec, stream,
+    )
 
 
 rotate_concat_matmul_relu.launches = 0
+rotate_concat_matmul_relu.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 class RotateConcatMatmulRelu(torch.autograd.Function):

@@ -260,3 +260,27 @@ def test_plan(rows, c, itemsize, per_sm, want):
     assert tiles * lanes * v >= c > (tiles - 1) * lanes * v
     assert chunk_rows <= batchnorm.MAX_CHUNK_ROWS and chunk_rows % (256 // lanes) == 0
     assert (chunks - 1) * chunk_rows < rows <= chunks * chunk_rows
+
+
+@pytest.mark.parametrize(
+    "rows, c, itemsize, per_sm, want",
+    [
+        (802_816, 64, 2, 4, (8, 1536, 523, 1, 33)),  # stem, bf16, bn_bwd_reduce's plan
+        (802_816, 64, 2, 6, (8, 1024, 784, 1, 49)),  # stem, bn_stats' plan
+        (200_704, 256, 2, 4, (8, 1536, 131, 4, 9)),  # layer-1 tail: 4 channel tiles
+        (3_136, 2_048, 2, 4, (8, 192, 17, 32, 2)),  # layer-4 downsample
+        (2_450, 72, 2, 4, (8, 16, 154, 2, 10)),  # ragged
+        (802_816, 64, 4, 6, (8, 2032, 396, 2, 25)),  # stem, f32
+        (3, 5, 4, 6, (2, 64, 1, 1, 1)),  # tiny
+    ],
+)
+def test_plan_reduce(rows, c, itemsize, per_sm, want):
+    """The reductions' plan: at most 8 lanes of 128 threads, one wave of
+    ``per_sm`` blocks per SM, chunk partials summed in groups of 16."""
+    lanes, chunk_rows, chunks, tiles, groups = batchnorm.plan_reduce(rows, c, itemsize, 132, per_sm)
+    assert (lanes, chunk_rows, chunks, tiles, groups) == want
+    v = 16 // itemsize
+    assert lanes <= 8 and tiles * lanes * v >= c > (tiles - 1) * lanes * v
+    assert chunk_rows <= batchnorm.MAX_CHUNK_ROWS and chunk_rows % (128 // lanes) == 0
+    assert (chunks - 1) * chunk_rows < rows <= chunks * chunk_rows
+    assert groups == -(-chunks // batchnorm.REDUCE_GROUP)

@@ -62,8 +62,12 @@ def test_fused_fuser_ragged_batch_matches_jax():
 
 def test_cpu_call_does_not_count_a_launch(monkeypatch):
     monkeypatch.setattr(fusion.rotate_concat_matmul_relu, "launches", 0)
+    monkeypatch.setattr(
+        fusion.rotate_concat_matmul_relu, "launches_by_variant", dict.fromkeys(fusion.VARIANTS, 0)
+    )
     fusion.rotate_concat_matmul_relu(*_port_args(*_inputs(4, 16, 8, 24)))
     assert fusion.rotate_concat_matmul_relu.launches == 0
+    assert fusion.rotate_concat_matmul_relu.launches_by_variant == {"wgmma": 0, "generic": 0}
 
 
 def test_bf16_reference_rounds_rotated_row_and_output():
@@ -112,3 +116,53 @@ def test_plan_splits(b, h, k, n_sm, want):
     assert (k_chunk, splits) == want
     assert k_chunk % 32 == 0 and (splits - 1) * k_chunk < k <= splits * k_chunk
 
+
+
+@pytest.mark.parametrize(
+    "b, d, v, h, want",
+    [
+        (64, 2048, 512, 3584, (64, 28, 1, 4, 14)),  # serving: 112 blocks, clusters of 4
+        (1, 2048, 512, 3584, (64, 28, 1, 4, 14)),
+        (50, 2048, 512, 3584, (64, 28, 1, 4, 14)),
+        (200, 2048, 512, 3584, (128, 28, 2, 2, 28)),  # two batch tiles: clusters of 2
+        (64, 2048, 512, 1000, (64, 8, 1, 8, 7)),  # few M-tiles: the largest cluster
+        (64, 512, 512, 2048, (64, 16, 1, 8, 4)),  # R18/R34's fuser
+        (512, 2048, 512, 8192, (128, 64, 4, 1, 56)),  # enough tiles: no split
+    ],
+)
+def test_plan_wgmma(b, d, v, h, want):
+    n_tile, m_tiles, n_tiles, splits, steps = fusion.plan_wgmma(b, d, v, h, 132)
+    assert (n_tile, m_tiles, n_tiles, splits, steps) == want
+    assert 1 <= splits <= 8 and m_tiles * 128 >= h and n_tiles * n_tile >= b
+    assert splits == 1 or m_tiles * n_tiles * splits <= 132
+    # the busiest block's steps: its image steps and 3 per v block
+    assert steps * splits >= (d + 3 * v) // 64
+
+
+def _shifted(t):
+    """A contiguous copy of t that starts one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize(
+    "b, d, v, h, dtype, shift, want",
+    [
+        (64, 2048, 512, 64, torch.bfloat16, None, "wgmma"),  # R50
+        (1, 512, 512, 64, torch.bfloat16, None, "wgmma"),  # R18 / R34, one pair
+        (64, 2048, 512, 64, torch.float32, None, "generic"),  # f32: no wgmma mode
+        (8, 200, 64, 64, torch.bfloat16, None, "generic"),  # D not a multiple of 64
+        (8, 256, 40, 64, torch.bfloat16, None, "generic"),  # V not a multiple of 64
+        (8, 256, 64, 64, torch.bfloat16, 0, "generic"),  # img 2 bytes past 16-byte alignment
+        (8, 256, 64, 64, torch.bfloat16, 1, "generic"),  # feat
+        (8, 256, 64, 64, torch.bfloat16, 3, "generic"),  # w1
+    ],
+)
+def test_choose_variant(b, d, v, h, dtype, shift, want):
+    """The variant follows dtype, shape and alignment alone (the routing
+    the wrapper's docstring names)."""
+    args = list(_port_args(*_inputs(b, d, v, h), dtype=dtype))
+    if shift is not None:
+        args[shift] = _shifted(args[shift])
+    assert fusion.choose_variant(args[0], args[1], args[3]) == want

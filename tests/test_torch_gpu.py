@@ -45,22 +45,48 @@ def _fusion_inputs(b, d, v, h, dtype, device, seed=3):
 @pytest.mark.parametrize(
     "b, d, v, h",
     [(64, 2048, 512, 3584), (1, 2048, 512, 3584), (50, 2048, 512, 3584),
-     (64, 2048, 512, 1000), (7, 100, 36, 90)],
-    ids=["serving", "b1", "b50", "h1000", "unaligned"],
+     (64, 2048, 512, 1000), (7, 100, 36, 90), (200, 2048, 512, 3584), (64, 512, 512, 2048),
+     (16, 200, 40, 96)],
+    ids=["serving", "b1", "b50", "h1000", "unaligned", "b200", "r18", "d200_v40"],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fusion_kernel_matches_reference(cuda, b, d, v, h, dtype):
     """f32 with TF32 off: atol/rtol 1e-4. bf16, compared in f32: atol/rtol
-    2e-2 (one bf16 ulp is 2^-8 and K reaches 3584)."""
+    2e-2 (one bf16 ulp is 2^-8 and K reaches 3584). bf16 with D and V
+    multiples of 64 runs the wgmma variant, everything else the generic one;
+    two calls agree bit for bit."""
     args = _fusion_inputs(b, d, v, h, dtype, cuda)
+    want_variant = "wgmma" if dtype == torch.bfloat16 and d % 64 == 0 and v % 64 == 0 else "generic"
     before = fusion.rotate_concat_matmul_relu.launches
+    by_variant = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
     got = fusion.rotate_concat_matmul_relu(*args)
     torch.cuda.synchronize()
     assert fusion.rotate_concat_matmul_relu.launches == before + 1
+    by_variant[want_variant] += 1
+    assert fusion.rotate_concat_matmul_relu.launches_by_variant == by_variant
     assert got.dtype == dtype and got.shape == (b, h)
     want = fusion.rotate_concat_matmul_relu_reference(*args)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(fusion.rotate_concat_matmul_relu(*args), got)
+
+
+@pytest.mark.gpu
+def test_fusion_misaligned_bf16_takes_generic_variant(cuda):
+    """A bf16 image feature that starts 2 bytes past a 16-byte boundary
+    (contiguous, D and V multiples of 64) is routed to the generic variant,
+    as choose_variant documents, and still matches the plain version."""
+    img, feat, rot, w1, b1 = _fusion_inputs(64, 2048, 512, 3584, torch.bfloat16, cuda)
+    shifted = torch.empty(img.numel() + 1, dtype=img.dtype, device=cuda)[1:].view_as(img)
+    shifted.copy_(img)
+    assert shifted.data_ptr() % 16 != 0
+    assert fusion.choose_variant(shifted, feat, w1) == "generic"
+    before = fusion.rotate_concat_matmul_relu.launches_by_variant["generic"]
+    got = fusion.rotate_concat_matmul_relu(shifted, feat, rot, w1, b1)
+    torch.cuda.synchronize()
+    assert fusion.rotate_concat_matmul_relu.launches_by_variant["generic"] == before + 1
+    want = fusion.rotate_concat_matmul_relu_reference(img, feat, rot, w1, b1)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu
@@ -124,7 +150,8 @@ def test_bn_kernels_match_float64_plain(cuda, case, dtype):
     Per-element outputs (y, dx): the same bars in f32; in bf16 each is
     rounded once (half an ulp is 2^-9 of its value), so atol / rtol 1e-2.
     dres (= g masked by y > 0) is exact. The plain backward takes the
-    kernel's y, so both use one ReLU mask."""
+    kernel's y, so both use one ReLU mask. The reductions repeat bit for
+    bit."""
     rows, c, relu, with_res = case
     x, res, gy, scale, bias = _bn_inputs(rows, c, dtype, cuda)
     res = res if with_res else None
@@ -136,6 +163,13 @@ def test_bn_kernels_match_float64_plain(cuda, case, dtype):
     dx, dres = batchnorm.bn_bwd_dx(gy, y, x, mean, rstd, k, mg, mgx, gmean, gvar, relu, relu and with_res)
     torch.cuda.synchronize()
     assert [k.launches for k in batchnorm.KERNELS] == [n + 1 for n in launches]
+    # the reductions are deterministic: a second call agrees bit for bit
+    for got_t, again_t in zip(
+        (mean, var, rstd, a, b, dscale, dbias, k, mg, mgx),
+        (*batchnorm.bn_stats(x, scale, bias, 1e-5),
+         *batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu)),
+    ):
+        assert torch.equal(got_t, again_t)
 
     d = lambda t: None if t is None else t.double()  # noqa: E731
     x64, s64, b64 = d(x), d(scale), d(bias)
