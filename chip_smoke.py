@@ -37,8 +37,9 @@ script exits non-zero and prints no result line:
    against their plain versions run in float64, forward and backward, in
    bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample
    and a ragged shape, with bn_stats and bn_bwd_reduce called twice, bit
-   for bit; the fusion Function's gradients against autograd through its
-   plain version at B=64.
+   for bit, and bn_stats in bf16 bit for bit its plain version on the card;
+   the fusion Function's gradients against autograd through its plain
+   version at B=64.
 6c. conv kernel: conv3x3_bn_stats against its plain version at the
    probe's shape (256 x 14 x 14 x 256, bf16), at R50's four stride-1 3x3
    shapes at 64 images (56x56x64, 28x28x128, 14x14x256, 7x7x512), at one
@@ -65,10 +66,11 @@ script exits non-zero and prints no result line:
    check_training_paths); bf16 loss within 1% and mean angular delta of
    pred_gaze <= 0.1 deg. Timings of the BN kernels over all 106 BN calls of
    a step (kernel, plain, each kernel's own library counterpart and the
-   library's forward and backward pairs: device time by the profiler; bound
-   from bytes), bn_bwd_dx by distinct shape of the step (ms, bytes, share of
-   its bound; measured twice, for the spread), step ms, images/s, peak
-   memory and the step's device time by kernel class.
+   library's forward and backward pairs: device time, the kernels' by CUDA
+   events behind a device sleep, the others' by the profiler; bound from
+   bytes), bn_stats and bn_bwd_dx by distinct shape of the step (ms,
+   bytes, share of the bound; measured twice, for the spread), step ms,
+   images/s, peak memory and the step's device time by kernel class.
 8. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -80,7 +82,7 @@ of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
 old, new, new, old; each builds its own tree's kernels and times the fuser
 at the serving shape (time_fusion's inputs and timing), bn_bwd_dx,
-bn_bwd_reduce and bn_stats over the 106 BN calls of one training step
+bn_bwd_reduce, bn_stats and bn_apply over the 106 BN calls of one training step
 (time_bn's inputs and timing), at shapes taken once from this tree's R50
 backbone, and the conv kernel at the probe's shape (run_probe's inputs and
 timing). One JSON line per turn, and a last line with every turn and the
@@ -491,8 +493,8 @@ def profile_serving(pred, req, n_iter=3) -> dict:
 
 def profile_device(fn, n_iter=3) -> dict:
     """Device time by kernel class over ``n_iter`` calls of ``fn`` (which
-    ends in a synchronize), and the device's idle share of the host wall
-    time (torch.profiler, CUPTI)."""
+    ends in a synchronize), the device's idle share of the host wall time,
+    and the count of kernel records (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -505,6 +507,7 @@ def profile_device(fn, n_iter=3) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_class: dict = {}
+    kernels = 0
     for e in prof.key_averages():
         # device-side events only: a CPU op's self device time repeats the
         # time of the kernels it launched
@@ -514,11 +517,13 @@ def profile_device(fn, n_iter=3) -> dict:
         key = e.key.lower()
         cls = next((c for c, pats in PROFILE_CLASSES if any(p in key for p in pats)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us
+        kernels += e.count
     busy = sum(by_class.values())
     return {
         "window_ms_per_call": wall_us / n_iter / 1e3,
         "device_busy_ms_per_call": busy / n_iter / 1e3,
         "device_idle_share": (1 - busy / wall_us) if busy else None,
+        "kernels": kernels,
         "device_ms_per_call_by_class": {
             c: us / n_iter / 1e3 for c, us in sorted(by_class.items(), key=lambda kv: -kv[1])
         },
@@ -671,6 +676,11 @@ def check_bn_kernels(batchnorm) -> dict:
             y = batchnorm.bn_apply(x, a, b, res, relu)
             dscale, dbias, k, mg, mgx = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu)
             dx, dres = batchnorm.bn_bwd_dx(gy, y, x, mean, rstd, k, mg, mgx, gmean, gvar, relu, want_dres)
+            # bf16: bn_stats and its plain version on the card agree bit for bit
+            if dtype == torch.bfloat16:
+                want = batchnorm.bn_stats_reference(x, scale, bias, 1e-5)
+                if not all(map(torch.equal, (mean, var, rstd, a, b), want)):
+                    raise RuntimeError(f"bn_stats {case} bf16: not bit for bit its plain version")
             # the reductions are deterministic: a second call agrees bit for bit
             again = (*batchnorm.bn_stats(x, scale, bias, 1e-5),
                      *batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu))
@@ -1031,36 +1041,84 @@ def bn_runner(batchnorm, calls, kind, plain=False):
     return run
 
 
-def device_ms(fn) -> float:
+def profiled_ms(fn) -> float:
     """Device ms per call of fn(0) by the profiler (kernel durations summed,
-    3 calls): the plain and library BN calls allocate and launch enough on
-    the host that events around them would also count host gaps."""
+    3 calls), for the plain and library BN calls: they allocate and launch
+    enough on the host that events around them would also count host gaps,
+    and more launches than the device queue holds ahead. A kernel record
+    the profiler drops makes this read low (seen on the card late in long
+    runs), which can only favour these baselines."""
     return profile_device(lambda: (fn(0), torch.cuda.synchronize()), n_iter=3)[
         "device_busy_ms_per_call"]
 
 
-def bn_dx_by_shape(batchnorm, calls) -> list:
-    """bn_bwd_dx by distinct shape of the step's calls: the shape's calls,
-    device ms summed over them (device_ms of the shape's calls alone),
-    bytes, bound and the bound's share of the time."""
+def device_ms(fn, n_iter=3) -> float:
+    """Device ms per call of fn(0), for the port's kernels: CUDA events
+    around ``n_iter`` calls, queued behind a device-side sleep and one
+    untimed call, so that the timed calls follow kernels of their own kind
+    rather than the sleep. The host must have enqueued every launch while the sleep still
+    runs (the start event is still pending when it is done; else the sleep
+    grows fourfold, to at most about 2 s, and then this fails), so the span
+    holds the kernels and the device's own gaps between them, and no host
+    gap. Unlike the profiler, events drop nothing."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    while True:
+        torch.cuda._sleep(cycles)
+        fn(0)
+        start.record()
+        for _ in range(n_iter):
+            fn(0)
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / n_iter
+        if cycles >= 4_000_000_000:
+            raise RuntimeError("device_ms: the host's enqueue outlasted a 4e9-cycle device sleep")
+        cycles *= 4
+
+
+def bn_by_shape(batchnorm, calls, kind) -> list:
+    """One BN kernel by distinct shape of the step's calls: the shape's
+    calls, device ms summed over them (device_ms of the shape's calls
+    alone), bytes, bound and the bound's share of the time. A shape is
+    (rows, C), and for every kernel but bn_stats, which reads x alone, also
+    whether the call has ReLU and a residual."""
     groups: dict = {}
     for q in calls:
-        groups.setdefault((q["rows"], q["c"], q["relu"], q["res"]), []).append(q)
+        extra = () if kind == "bn_stats" else (q["relu"], q["res"])
+        groups.setdefault((q["rows"], q["c"]) + extra, []).append(q)
     out = []
-    for (rows, c, relu, res), qs in groups.items():
-        nbytes = sum(bn_bytes("bn_bwd_dx", rows, c, 2, relu, res) for _ in qs)
-        ms = device_ms(bn_runner(batchnorm, qs, "bn_bwd_dx"))
+    for key, qs in groups.items():
+        nbytes = sum(bn_bytes(kind, q["rows"], q["c"], 2, q["relu"], q["res"]) for q in qs)
+        ms = device_ms(bn_runner(batchnorm, qs, kind))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        out.append({"rows": rows, "c": c, "relu": relu, "res": res, "calls": len(qs), "ms": ms,
-                    "bytes": nbytes, "bound_ms": bound, "share_of_bound": bound / ms})
+        rec = {"rows": key[0], "c": key[1]}
+        if kind != "bn_stats":
+            rec.update(relu=key[2], res=key[3])
+        out.append({**rec, "calls": len(qs), "ms": ms, "bytes": nbytes, "bound_ms": bound,
+                    "share_of_bound": bound / ms})
     return sorted(out, key=lambda g: -g["ms"])
+
+
+def log_by_shape(kind, tables) -> None:
+    for run, table in enumerate(tables):
+        log(f"{kind} by shape, run {run + 1}: total {sum(g['ms'] for g in table):.4f} ms; "
+            + "; ".join(f"{g['rows']}x{g['c']}{' relu' if g.get('relu') else ''}"
+                        f"{' res' if g.get('res') else ''} x{g['calls']}: {g['ms']:.4f} ms, "
+                        f"{g['share_of_bound']:.1%} of bound" for g in table))
 
 
 def time_bn(batchnorm, shapes) -> dict:
     """Phase 7c: each BN kernel over the step's 106 BN calls (one call of the
     timed function = all 106, at their shapes, bf16), its plain version, the
     library calls for the same functions, and the bounds. Times are device
-    time (torch.profiler, 3 passes), so launch gaps do not count."""
+    time over 3 passes: the kernels' by CUDA events behind a device sleep
+    (device_ms), the plain and library calls' by the profiler (profiled_ms),
+    so host gaps count in neither."""
     import torch.nn.functional as F
 
     calls = bn_calls(batchnorm, shapes)
@@ -1124,29 +1182,26 @@ def time_bn(batchnorm, shapes) -> dict:
     for kind in BN_KERNELS:
         kernel, plain = bn_runner(batchnorm, calls, kind), bn_runner(batchnorm, calls, kind, True)
         # plain, kernel, kernel, plain: compare within one call, in turns
-        p1, k1 = device_ms(plain), device_ms(kernel)
-        k2, p2 = device_ms(kernel), device_ms(plain)
+        p1, k1 = profiled_ms(plain), device_ms(kernel)
+        k2, p2 = device_ms(kernel), profiled_ms(plain)
         nbytes = sum(bn_bytes(kind, q["rows"], q["c"], 2, q["relu"], q["res"]) for q in calls)
         ops = sum(BN_OPS_PER_ELEMENT[kind] * q["rows"] * q["c"] for q in calls)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
         lib_fn, covers = library[kind]
-        lib_ms = device_ms(lib_fn)
+        lib_ms = profiled_ms(lib_fn)
         out[kind] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
                      "library_ms": lib_ms, "library_covers": covers}
         log(f"{kind} over the step's {len(calls)} calls (device ms): kernel {k1:.4f}/{k2:.4f}, "
             f"plain {p1:.4f}/{p2:.4f}, library {lib_ms:.4f} ({covers}), bound "
             f"{max(t_bytes, t_ops):.4f} ({nbytes} bytes; {ops} ops)")
-    # bn_bwd_dx by shape, twice: where the gap to its bound lies, and the spread
-    by_shape = [bn_dx_by_shape(batchnorm, calls) for _ in range(2)]
-    for run, table in enumerate(by_shape):
-        log(f"bn_bwd_dx by shape, run {run + 1}: total {sum(g['ms'] for g in table):.4f} ms; "
-            + "; ".join(f"{g['rows']}x{g['c']}{' relu' if g['relu'] else ''}{' res' if g['res'] else ''}"
-                        f" x{g['calls']}: {g['ms']:.4f} ms, {g['share_of_bound']:.1%} of bound"
-                        for g in table))
-    out["bn_bwd_dx"]["by_shape"] = by_shape
-    lib_fwd = device_ms(library_forward)
-    lib_bwd = device_ms(library_backward)
+    # bn_stats and bn_bwd_dx by shape, twice: where the gap to the bound
+    # lies, and the spread
+    for kind in ("bn_stats", "bn_bwd_dx"):
+        out[kind]["by_shape"] = [bn_by_shape(batchnorm, calls, kind) for _ in range(2)]
+        log_by_shape(kind, out[kind]["by_shape"])
+    lib_fwd = profiled_ms(library_forward)
+    lib_bwd = profiled_ms(library_backward)
     log(f"library pairs per step (device ms): F.batch_norm(training) + add + relu {lib_fwd:.4f} vs "
         f"bn_stats + bn_apply {out['bn_stats']['ms'] + out['bn_apply']['ms']:.4f}; "
         f"threshold_backward + native_batch_norm_backward {lib_bwd:.4f} vs bn_bwd_reduce + "
@@ -1188,7 +1243,7 @@ def step_bn_shapes() -> list:
     return shapes
 
 
-TURN_KERNELS = ("bn_bwd_dx", "bn_bwd_reduce", "bn_stats")
+TURN_KERNELS = ("bn_bwd_dx", "bn_bwd_reduce", "bn_stats", "bn_apply")
 
 
 def run_turn(tree: str, shapes_file: str) -> dict:
@@ -1218,7 +1273,7 @@ def run_turn(tree: str, shapes_file: str) -> dict:
 
 
 def kernel_turns(old: str, card: str) -> dict:
-    """The fuser, bn_bwd_dx, bn_bwd_reduce, bn_stats and the conv kernel of
+    """The fuser, the BN kernels of TURN_KERNELS and the conv kernel of
     an earlier checkout ``old`` against this tree's, in four child
     processes on one card: old, new, new, old. Each child prints one JSON
     line; so does each turn here."""
@@ -1251,8 +1306,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", default=None, metavar="DIR",
                     help="instead of the phases above, time an earlier checkout's fuser, "
-                         "bn_bwd_dx, bn_bwd_reduce, bn_stats and conv kernel against this "
-                         "tree's, in turns")
+                         "BN kernels and conv kernel against this tree's, in turns")
     ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -52,6 +52,17 @@
 //   49 KB (bf16 under ReLU) to 98 KB (f32) per SM are in flight. That beat,
 //   on the H100 over the step's 106 calls, 6 blocks (74 KB, with spills),
 //   4 rows at 4 blocks, and 1 row at 8.
+// - bn_stats issues 4 rows of x (16 bytes each) before it adds any, in a
+//   wave of 6 blocks per SM: 48 KB in flight per SM, where one row at a
+//   time kept 12 KB. For bf16 it widens each value to f64 once and adds its
+//   square by one fma, which is exact and equal to the f32 square the plain
+//   version adds wherever that square is a normal f32 or 0; a row holding
+//   any other value takes the f32 product (stats_add). On the H100 an
+//   ablation (tuning builds of this file, PERF.md) found the f64 work
+//   nearly hidden (loads alone take almost all of the kernel's time) and a
+//   large fixed cost per call: the launch, and reduce_partials' chain of
+//   global round trips after the last block's loads. 2 or 8 rows, or 4
+//   blocks per SM, were no faster.
 // - var = E[x^2] - E[x]^2 (the JAX formula) is formed in f64 from f64
 //   sums: the cancellation costs the f64 mantissa, not f32's.
 // - A ragged C, or a pointer that is not 16-byte aligned, takes a masked
@@ -60,9 +71,8 @@
 //   stores, loads its last-use inputs evict-first, reads its per-channel
 //   constants from shared memory, and runs one wave of persistent blocks
 //   (see kBwdDxMinBlocks below).
-// No TMA, no cp.async pipeline, and the forward reads x twice.
-// bn_stats keeps one row in flight per thread (a single-pass forward is
-// queued); it shares reduce_partials and so the reductions' launch shape.
+// No TMA, no cp.async pipeline, and the forward reads x twice (a
+// single-pass forward is queued).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -273,6 +283,24 @@ __device__ bool reduce_partials(const Shape& s, double (&a)[V], double (&b)[V], 
   return true;
 }
 
+// 16 bytes of T at base[off..), zeros for channels c0+e >= C (scalar loads
+// when `vec` is 0).
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* base, long long off, int c0, int C, int vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(base + off));
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  T* t = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int e = 0; e < Width<T>::V; ++e)
+    if (c0 + e < C) t[e] = base[off + e];
+  return raw;
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int e) {
+  return to_f(reinterpret_cast<const T*>(&raw)[e]);
+}
+
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -284,36 +312,100 @@ struct StatsArgs {
   double* ws;
   int* counters;
   float *mean, *var, *rstd, *a, *b;
-  float eps;
+  double eps;
 };
 
+// bn_stats' design (header): kStatsRows rows of 16-byte loads in flight per
+// thread, in blocks of NTR threads of which kStatsMinBlocks fit an SM (its
+// launch bounds; the plan launches one wave of ops/batchnorm.py's
+// STATS_BLOCKS_PER_SM, at most that many).
+constexpr int kStatsRows = 4;
+constexpr int kStatsMinBlocks = 6;
+
+// Whether every bf16 of the 16 bytes squares exactly into a normal f32 (or
+// is 0): |v| in [2^-63, 2^64), i.e. |bits| in [0x2000, 0x5F80). Four 32-bit
+// words of two bf16 each, tested two at a time with no carry between the
+// halves: for a = |bits| <= 0x7fff, bit 15 of a + 0x7fff is (a != 0), of
+// a + 0x6000 is (a >= 0x2000), and of a + 0x2080 is (a >= 0x5F80).
+__device__ __forceinline__ bool squares_exact_in_f32(const uint4& raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t bad = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t h = w[i] & 0x7fff7fffu;
+    bad |= ((h + 0x7fff7fffu) & ~(h + 0x60006000u)) | (h + 0x20802080u);
+  }
+  return (bad & 0x80008000u) == 0;
+}
+
+// One row's 16 bytes (V values) into this thread's f64 sums, in the order
+// of the elements. sum takes (double)v. sq takes (double)(v*v rounded to
+// f32), as the plain version squares in f32. For bf16, v is widened once
+// and x*x added by one fma: v has an 8-bit significand, so x*x has at most
+// 16 bits and is exact in f64, and equals the f32 square exactly where that
+// is a normal f32 or 0 (squares_exact_in_f32); the fma rounds once, as the
+// add of the exact square does, so the sums are the same bits. f32, and a
+// bf16 row holding any other value (tiny, huge, inf, nan), widen v and its
+// f32 square apart.
 template <typename T>
-__global__ void __launch_bounds__(NTR) bn_stats_kernel(const Shape s, const StatsArgs p) {
+__device__ __forceinline__ void stats_add(const uint4& raw, double (&sum)[Width<T>::V],
+                                          double (&sq)[Width<T>::V]) {
   constexpr int V = Width<T>::V;
+  if (sizeof(T) == 2 && squares_exact_in_f32(raw)) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const double x = (double)elem<T>(raw, e);
+      sum[e] = __dadd_rn(sum[e], x);
+      sq[e] = __fma_rn(x, x, sq[e]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float v = elem<T>(raw, e);
+    sum[e] = __dadd_rn(sum[e], (double)v);
+    sq[e] = __dadd_rn(sq[e], (double)__fmul_rn(v, v));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTR, kStatsMinBlocks) bn_stats_kernel(const Shape s, const StatsArgs p) {
+  constexpr int V = Width<T>::V;
+  constexpr int U = kStatsRows;
   const Coords k = coords<V, NTR>(s);
   const T* x = static_cast<const T*>(p.x);
   double sum[V], sq[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) sum[e] = sq[e] = 0.0;
   if (k.c0 < s.C) {
-    for (long long r = k.r_begin; r < k.r_end; r += k.rstep) {
-      float v[V];
-      load_v<T>(v, x, r * s.C + k.c0, k.c0, s.C, s.vec);
+    long long r = k.r_begin;
+    if (s.vec) {
+      // whole passes: U rows' loads issued, then added in row order
+      const long long step = (long long)U * k.rstep;
+      for (; r + (long long)(U - 1) * k.rstep < k.r_end; r += step) {
+        uint4 raw[U];
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        sum[e] += (double)v[e];
-        sq[e] += (double)__fmul_rn(v[e], v[e]);
+        for (int u = 0; u < U; ++u)
+          raw[u] = __ldg(reinterpret_cast<const uint4*>(x + (r + (long long)u * k.rstep) * s.C + k.c0));
+#pragma unroll
+        for (int u = 0; u < U; ++u) stats_add<T>(raw[u], sum, sq);
       }
     }
+    // the rest of the rows, and the masked scalar path, one row at a time
+    for (; r < k.r_end; r += k.rstep)
+      stats_add<T>(load_raw<T>(x, r * s.C + k.c0, k.c0, s.C, s.vec), sum, sq);
   }
   double ts, tq;
   if (!reduce_partials<V>(s, sum, sq, p.ws, p.counters, ts, tq)) return;
   const int c = blockIdx.y * s.lanes * V + threadIdx.x;
   if (threadIdx.x < s.lanes * V && c < s.C) {
-    const double n = (double)s.rows;
-    const double mean = ts / n;
-    const double var = fmax(__dsub_rn(tq / n, __dmul_rn(mean, mean)), 0.0);
-    const float rstd = (float)(1.0 / sqrt(var + (double)p.eps));
+    // "/ N" is a product with 1/N rounded to f64, as PyTorch divides a
+    // tensor by a Python number on the card, so that the plain version
+    // rounds alike
+    const double inv_n = 1.0 / (double)s.rows;
+    const double mean = __dmul_rn(ts, inv_n);
+    const double var = fmax(__dsub_rn(__dmul_rn(tq, inv_n), __dmul_rn(mean, mean)), 0.0);
+    const float rstd = (float)(1.0 / sqrt(__dadd_rn(var, p.eps)));
     const float a = __fmul_rn(p.scale[c], rstd);
     p.mean[c] = (float)mean;
     p.var[c] = (float)var;
@@ -385,24 +477,6 @@ template <typename T>
 struct ReduceUnroll {
   static constexpr int U = sizeof(T) == 2 ? 2 : 4;
 };
-
-// 16 bytes of T at base[off..), zeros for channels c0+e >= C (scalar loads
-// when `vec` is 0).
-template <typename T>
-__device__ __forceinline__ uint4 load_raw(const T* base, long long off, int c0, int C, int vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(base + off));
-  uint4 raw = make_uint4(0, 0, 0, 0);
-  T* t = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int e = 0; e < Width<T>::V; ++e)
-    if (c0 + e < C) t[e] = base[off + e];
-  return raw;
-}
-
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& raw, int e) {
-  return to_f(reinterpret_cast<const T*>(&raw)[e]);
-}
 
 template <typename T, bool RELU>
 __global__ void __launch_bounds__(NTR, kBwdReduceMinBlocks) bn_bwd_reduce_kernel(const Shape s, const BwdReduceArgs p) {
@@ -672,6 +746,13 @@ int mvgaze_bn_bwd_dx_config(int* min_blocks, int* rows) {
   return 0;
 }
 
+// bn_stats' blocks that fit an SM (its launch bounds; the plan's blocks
+// per SM must not exceed them).
+int mvgaze_bn_stats_config(int* min_blocks) {
+  *min_blocks = kStatsMinBlocks;
+  return 0;
+}
+
 // The reductions' threads per block, most lanes and chunks per group.
 int mvgaze_bn_reduce_config(int* threads, int* max_lanes, int* group) {
   *threads = NTR;
@@ -688,7 +769,7 @@ int mvgaze_bn_reduce_config(int* threads, int* max_lanes, int* group) {
 int mvgaze_bn_stats(int dtype, const void* x, const float* scale, const float* bias, double* ws,
                     int* counters, float* mean, float* var, float* rstd, float* a, float* b,
                     long long rows, int C, int lanes, long long chunk_rows, int chunks, int vec,
-                    int groups, float eps, void* stream) {
+                    int groups, double eps, void* stream) {
   const Shape s{rows, C, lanes, chunk_rows, chunks, vec, groups};
   if (int err = check_shape(s, true)) return err;
   const StatsArgs p{x, scale, bias, ws, counters, mean, var, rstd, a, b, eps};

@@ -40,11 +40,15 @@ _REDUCE_THREADS, _REDUCE_MAX_LANES, REDUCE_GROUP = 128, 8, 16
 # at most this many rows go into one block's partial sums
 MAX_CHUNK_ROWS = 4096
 # blocks per SM the planner aims at: the elementwise kernels (46-54
-# registers) over-subscribe for tail balance; the reductions take one wave
-# of fewer blocks than fit an SM (bn_stats: 72 registers, 7 fit; bn_bwd_reduce:
-# at most 96 registers, 5 fit), so that fewer partials are left to add
-# (the fastest over the step's 106 calls in a sweep of 3-8 per SM on the H100)
+# registers) over-subscribe for tail balance; bn_bwd_reduce takes one wave of
+# fewer blocks than fit an SM (at most 96 registers, 5 fit), so that fewer
+# partials are left to add (the fastest over the step's 106 calls in a sweep
+# of 3-8 per SM on the H100).
 _BLOCKS_PER_SM = 8
+# bn_stats takes one wave of as many blocks as its launch bounds fit
+# (kStatsMinBlocks in csrc/batchnorm.cu; this may not exceed it, checked at
+# load), each thread with 4 rows of 16-byte loads in flight: 6 blocks x 128
+# threads x 4 rows x 16 B = 48 KB per SM.
 STATS_BLOCKS_PER_SM = 6
 BWD_REDUCE_BLOCKS_PER_SM = 4
 # bn_bwd_dx: the blocks that fit an SM (its launch bounds) and the rows each
@@ -226,10 +230,19 @@ def _lib():
             f"csrc/batchnorm.cu bn_bwd_dx {[v.value for v in dx_cfg]} != ops/batchnorm.py's "
             f"{(BWD_DX_BLOCKS_PER_SM, BWD_DX_ROWS)}"
         )
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    stats_fit = ctypes.c_int()
+    lib.mvgaze_bn_stats_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.mvgaze_bn_stats_config.restype = ctypes.c_int
+    lib.mvgaze_bn_stats_config(ctypes.byref(stats_fit))
+    if STATS_BLOCKS_PER_SM > stats_fit.value:
+        raise RuntimeError(
+            f"ops/batchnorm.py plans {STATS_BLOCKS_PER_SM} bn_stats blocks per SM, "
+            f"csrc/batchnorm.cu fits {stats_fit.value}"
+        )
+    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     shape = [ll, i, i, ll, i, i]  # rows, C, lanes, chunk_rows, chunks, vec
     signatures = {
-        "mvgaze_bn_stats": [i] + [p] * 10 + shape + [i, f, p],
+        "mvgaze_bn_stats": [i] + [p] * 10 + shape + [i, d, p],
         "mvgaze_bn_apply": [i] + [p] * 5 + shape + [i, p],
         "mvgaze_bn_bwd_reduce": [i] + [p] * 13 + shape + [i, i, p],
         "mvgaze_bn_bwd_dx": [i] + [p] * 12 + shape + [i, p],

@@ -267,6 +267,8 @@ def test_plan(rows, c, itemsize, per_sm, want):
     [
         (802_816, 64, 2, 4, (8, 1536, 523, 1, 33)),  # stem, bf16, bn_bwd_reduce's plan
         (802_816, 64, 2, 6, (8, 1024, 784, 1, 49)),  # stem, bn_stats' plan
+        (12_544, 1_024, 2, 6, (8, 256, 49, 16, 4)),  # layer-3 tail, bn_stats
+        (3_136, 512, 2, 6, (8, 32, 98, 8, 7)),  # layer-4 block, bn_stats
         (200_704, 256, 2, 4, (8, 1536, 131, 4, 9)),  # layer-1 tail: 4 channel tiles
         (3_136, 2_048, 2, 4, (8, 192, 17, 32, 2)),  # layer-4 downsample
         (2_450, 72, 2, 4, (8, 16, 154, 2, 10)),  # ragged
@@ -284,6 +286,61 @@ def test_plan_reduce(rows, c, itemsize, per_sm, want):
     assert chunk_rows <= batchnorm.MAX_CHUNK_ROWS and chunk_rows % (128 // lanes) == 0
     assert (chunks - 1) * chunk_rows < rows <= chunks * chunk_rows
     assert groups == -(-chunks // batchnorm.REDUCE_GROUP)
+
+
+def _finite_bf16_bits() -> np.ndarray:
+    bits = np.arange(1 << 16, dtype=np.uint64)
+    return bits[((bits >> 7) & 0xFF) != 0xFF]
+
+
+def _square_exact_in_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns whose square is a normal f32 or 0: |v| in
+    [2^-63, 2^64) (|bits| in [0x2000, 0x5F80)), or v = 0."""
+    a = bits & 0x7FFF
+    return (a == 0) | ((a >= 0x2000) & (a < 0x5F80))
+
+
+def test_bf16_square_widened_once_equals_the_f32_square():
+    """The identity bn_stats' one widening per element rests on
+    (csrc/batchnorm.cu::stats_add): over every finite bf16 pattern whose
+    square is a normal f32 or 0, v.double() * v.double() equals
+    (v.float() * v.float()).double() bit for bit. Outside that range the f32
+    square overflows or underflows and the two differ, so the kernel sends
+    a row holding such a value to the f32 product."""
+    bits = _finite_bf16_bits()
+    v = torch.from_numpy(bits.astype(np.uint16).view(np.int16)).view(torch.bfloat16)
+    wide = (v.double() * v.double()).view(torch.int64).numpy()
+    f32 = (v.float() * v.float()).double().view(torch.int64).numpy()
+    in_range = _square_exact_in_f32(bits)
+    assert in_range.sum() == 2 * (1 + 0x5F80 - 0x2000)  # ±0 and the range, both signs
+    assert (wide[in_range] == f32[in_range]).all()
+    big = (bits & 0x7FFF) >= 0x5F80
+    assert np.isinf(f32.view(np.float64)[big]).all() and np.isfinite(wide.view(np.float64)[big]).all()
+    assert (wide != f32).sum() > big.sum()  # tiny values too
+
+
+def _squares_exact_in_f32_words(words: np.ndarray) -> np.ndarray:
+    """csrc/batchnorm.cu::squares_exact_in_f32 on 32-bit words of two bf16
+    each (uint64 arithmetic: no sum below reaches 2^32)."""
+    h = words & 0x7FFF7FFF
+    bad = ((h + 0x7FFF7FFF) & ~(h + 0x60006000)) | (h + 0x20802080)
+    return (bad & 0x80008000) == 0
+
+
+@pytest.mark.parametrize("half", ["low", "high"])
+def test_squares_exact_test_takes_two_bf16_per_word(half):
+    """The kernel's range test of two bf16 at a time in one 32-bit word is
+    the range test of each: every bf16 pattern in one half, beside the
+    edges of the range, specials and seeded patterns in the other."""
+    every = np.arange(1 << 16, dtype=np.uint64)
+    edges = [0, 0x8000, 0x0001, 0x1FFF, 0x2000, 0x9FFF, 0xA000, 0x5F7F, 0x5F80, 0xDF7F, 0xDF80,
+             0x3F80, 0x7F80, 0x7FC0, 0x7FFF, 0xFFFF]
+    others = np.concatenate([np.array(edges, np.uint64),
+                             np.random.RandomState(0).randint(0, 1 << 16, 48).astype(np.uint64)])
+    for o in others:
+        words = every | (o << 16) if half == "low" else o | (every << 16)
+        want = _square_exact_in_f32(every) & _square_exact_in_f32(np.array([o]))[0]
+        assert (_squares_exact_in_f32_words(words) == want).all(), hex(int(o))
 
 
 # the distinct (rows, C) of bn_bwd_dx's 106 calls in one R50 step at 64

@@ -242,6 +242,81 @@ def test_bn_wrapper_rejects_non_contiguous(cuda):
         batchnorm.bn_stats(x.T.contiguous().T, torch.ones(16, device=cuda), torch.zeros(16, device=cuda), 1e-5)
 
 
+def _every_finite_bf16_pattern(rows=65_536, c=64, seed=0):
+    """(rows, C) bf16 bits holding every finite bf16 pattern: column j holds
+    each finite pattern whose exponent field is one of 4j..4j+3 (both signs,
+    every mantissa), then seeded draws of its positive ones. A column spans
+    4 binades, so every value is k units of its least step with |k| < 2^12:
+    each sum of 65,536 values (under 2^28 units), of their squares (under
+    2^40) and of their f32 squares is exact in f64 whatever the order, and
+    the kernel and the plain version sum the same values: equal bits, or
+    both inf."""
+    rng = np.random.RandomState(seed)
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    exp = (bits >> 7) & 0xFF
+    cols = []
+    for j in range(c):
+        pats = bits[(exp >= 4 * j) & (exp < 4 * j + 4) & (exp != 0xFF)]
+        fill = rng.choice(pats[pats < 0x8000], rows - len(pats))
+        cols.append(np.concatenate([pats, fill]))
+    out = np.stack(cols, axis=1).astype(np.uint16)
+    assert set(np.unique(out)) == set(bits[exp != 0xFF].tolist())
+    return out
+
+
+@pytest.mark.gpu
+def test_bn_stats_every_finite_bf16_pattern_bit_for_bit(cuda):
+    """bn_stats on a bf16 x that holds every finite bf16 pattern: all five
+    outputs equal the plain version's bit for bit, and a second call the
+    first. Columns 16-46 square exactly into normal f32 (one widening per
+    element); the others hold zeros, f32-subnormal or overflowing squares
+    (the two-conversion path), some of them beside in-range columns in one
+    16-byte row."""
+    x = torch.from_numpy(_every_finite_bf16_pattern().view(np.int16)).to(cuda).view(torch.bfloat16)
+    g = torch.Generator(cuda).manual_seed(1)
+    scale = torch.rand(64, device=cuda, generator=g) + 0.5
+    bias = torch.randn(64, device=cuda, generator=g) * 0.1
+    got = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    again = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    want = batchnorm.bn_stats_reference(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    for name, got_t, again_t, want_t in zip(("mean", "var", "rstd", "a", "b"), got, again, want):
+        assert torch.equal(got_t, again_t), name
+        assert torch.equal(got_t, want_t), (name, got_t, want_t)
+
+
+STEP_SHAPES = [  # the distinct (rows, C) of the BN calls of one R50 step at 64 pairs, and a ragged one
+    (802_816, 64), (200_704, 64), (200_704, 128), (200_704, 256), (50_176, 128), (50_176, 256),
+    (50_176, 512), (12_544, 256), (12_544, 512), (12_544, 1024), (3_136, 512), (3_136, 2_048),
+    (2_450, 72),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, c", STEP_SHAPES, ids=[f"{r}x{c}" for r, c in STEP_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bn_stats_at_every_step_shape(cuda, rows, c, dtype):
+    """bn_stats at each distinct shape of the step (rows in flight, and the
+    ragged shape's masked scalar path): in bf16 all five outputs equal the
+    plain version's on the card bit for bit; in f32 they lie within 1e-5 of
+    the plain version in float64 (the forward bar); two calls agree bit for
+    bit."""
+    x, _, _, scale, bias = _bn_inputs(rows, c, dtype, cuda, seed=rows + c)
+    got = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    again = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    names = ("mean", "var", "rstd", "a", "b")
+    for name, got_t, again_t in zip(names, got, again):
+        assert torch.equal(got_t, again_t), name
+    if dtype == torch.bfloat16:
+        for name, got_t, want_t in zip(names, got, batchnorm.bn_stats_reference(x, scale, bias, 1e-5)):
+            assert torch.equal(got_t, want_t), name
+    else:
+        want = batchnorm.bn_stats_reference(x.double(), scale.double(), bias.double(), 1e-5)
+        for name, got_t, want_t in zip(names, got, want):
+            torch.testing.assert_close(got_t.double(), want_t, atol=1e-5, rtol=1e-5, msg=name)
+
+
 CONV_CASES = [  # B, H, W, C, Cout, x dtype
     (64, 56, 56, 64, 64, torch.bfloat16),  # R50 layer 1's 3x3 at 64 images
     (64, 28, 28, 128, 128, torch.bfloat16),  # layer 2
