@@ -11,8 +11,9 @@ script exits non-zero and prints no result line:
 2. build: compiles every csrc/*.cu for sm_90a and prints each -Xptxas -v
    report (registers, shared memory, spills).
 3. kernels: the fusion kernel against its plain PyTorch version on the
-   card, at the serving shapes, B in {1, 50, 200}, H = 1000, R18's widths
-   and an unaligned shape: bf16 at the model's shapes must take the wgmma
+   card, at the serving shapes, B in {1, 8, 32, 50, 200} (8 and 32: the
+   trainer phase's ragged f32 eval batch and grad_accum micro-batch),
+   H = 1000, R18's widths and an unaligned shape: bf16 at the model's shapes must take the wgmma
    variant, f32 and the unaligned shape the generic one, and each case is
    called twice, bit for bit. float32 runs with TF32 off (cuBLAS and cuDNN)
    throughout the script, so float32 means float32.
@@ -64,19 +65,38 @@ script exits non-zero and prints no result line:
    from one saved state: f32 (TF32 off) loss rtol 1e-4 and every gradient
    atol 5e-3 / rtol 5e-2 where f32 can reach that bar of an f64 step (see
    check_training_paths); bf16 loss within 1% and mean angular delta of
-   pred_gaze <= 0.1 deg. Timings of the BN kernels over all 106 BN calls of
+   pred_gaze <= 0.1 deg; each with grad_accum 1 and 2. Timings of the BN kernels over all 106 BN calls of
    a step (kernel, plain, each kernel's own library counterpart and the
    library's forward and backward pairs: device time, the kernels' by CUDA
    events behind a device sleep, the others' by the profiler; bound from
    bytes), bn_stats and bn_bwd_dx by distinct shape of the step (ms,
    bytes, share of the bound; measured twice, for the spread), step ms,
    images/s, peak memory and the step's device time by kernel class.
-8. the kernels line, the card line, and as the last line
+8. trainer: the port's Trainer, BatchLoader and prefetch at R50 x 3, bf16,
+   64 pairs per step, on an in-memory corpus with GazeDataset's sample
+   contract (synthetic_rows, learnable, 224x224; 2 subjects x 6 frames x 18
+   cameras = 216 pairs, 3 updates an epoch; a test subject of 72 pairs,
+   batches of 64 and 8). The main path trains 2 epochs (evaluation before
+   and after each, a save each epoch, a print each step): counts set to 0
+   just before and read just after, each update 106 launches of each BN
+   kernel and 6 of the fuser's wgmma variant, each float32 evaluation batch
+   6 of its generic variant; finite losses, previews (8, 224, 224, 3). The
+   epoch-2 checkpoint loads strictly into GazePredictor (float32), whose
+   predictions on the test subject agree with Trainer.test's within 0.1 deg.
+   A run stopped after update 4 (the preemption save, mid-epoch) and resumed
+   by a new Trainer gives updates 5-6 losses within 1% and a final error
+   within 0.1 deg of the uninterrupted run's. From the epoch-1 checkpoint,
+   one epoch each with grad_accum=2 (212 BN launches each and 12 fuser
+   launches per update), ema_decay=0.99 and freeze_bn (no BN kernel; every
+   BN buffer bit for bit as loaded). Images/s through train_one_epoch beside
+   phase 7's bare step, the device's idle share over an epoch of 3 steps,
+   peak memory.
+9. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-8, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-9, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -94,6 +114,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import io
+import itertools
 import json
 import math
 import os
@@ -171,10 +192,14 @@ def check_kernels(fusion) -> float:
     """Phase 3: the fusion kernel against its plain version; returns the
     max |err| at the serving shape in bf16. bf16 at the model's shapes must
     take the wgmma variant, f32 and the unaligned bf16 shape the generic
-    one; every case is called twice and must agree bit for bit."""
+    one; every case is called twice and must agree bit for bit. b32 is a
+    grad_accum=2 micro-batch of the trainer phase, b8 its float32 eval's
+    ragged last batch."""
     cases = [
         ("serving", B, D, V, H, torch.bfloat16), ("serving", B, D, V, H, torch.float32),
         ("b1", 1, D, V, H, torch.bfloat16), ("b1", 1, D, V, H, torch.float32),
+        ("b8", 8, D, V, H, torch.float32),
+        ("b32", 32, D, V, H, torch.bfloat16), ("b32", 32, D, V, H, torch.float32),
         ("b50", 50, D, V, H, torch.bfloat16), ("b50", 50, D, V, H, torch.float32),
         ("b200", 200, D, V, H, torch.bfloat16),
         ("h1000", B, D, V, 1000, torch.bfloat16), ("h1000", B, D, V, 1000, torch.float32),
@@ -767,7 +792,7 @@ def training_batch(seed: int) -> dict:
     }
 
 
-def make_trainer(state, dtype):
+def make_trainer(state, dtype, grad_accum=1):
     """(model, train_step) from a saved state dict, R50 x 3 iterations."""
     from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
     from rot_mvgaze_tpu_torch.models import FeatRotationSymm
@@ -780,7 +805,7 @@ def make_trainer(state, dtype):
     step = make_train_step(
         model, metrics, make_optimizer(model.parameters()), image_size=224,
         schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
-        compute_dtype=dtype,
+        compute_dtype=dtype, grad_accum=grad_accum,
     )
     return model, step
 
@@ -837,11 +862,12 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     # record the shapes of the step's 106 BN calls (for the timings)
     shapes = []
     hooks = record_bn_shapes(model, shapes)
-    losses = [step(batch, gen)["loss_gaze"]]
+    updates = itertools.count()  # the schedule's count
+    losses = [step(batch, gen, step=next(updates))["loss_gaze"]]
     for h in hooks:
         h.remove()
     for _ in range(n_warm - 1):
-        losses.append(step(batch, gen)["loss_gaze"])
+        losses.append(step(batch, gen, step=next(updates))["loss_gaze"])
     torch.cuda.synchronize()
 
     # --- main path: counts reset just before each step, read just after
@@ -852,7 +878,7 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     t0 = time.perf_counter()
     for _ in range(n_timed):
         reset_counts(fusion, batchnorm)
-        losses.append(step(batch, gen)["loss_gaze"])
+        losses.append(step(batch, gen, step=next(updates))["loss_gaze"])
         counts = launch_counts(fusion, batchnorm)
         if counts != PER_STEP:
             raise RuntimeError(f"launches per step {counts} != {PER_STEP}")
@@ -878,7 +904,7 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     copies = {"grad_copies": batchnorm.fused_batchnorm_act.grad_copies}
 
     def profile_step():
-        step(batch, gen)
+        step(batch, gen, step=next(updates))
         torch.cuda.synchronize()
 
     breakdown = profile_device(profile_step, n_iter=3)
@@ -889,30 +915,39 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     }
 
 
-def reference_step_f64(state, batch, seed):
+def reference_step_f64(state, batch, seed, grad_accum=1):
     """(loss, grads) of one step's forward and backward in float64 through
-    the plain versions, on the step's own augmented views: the yardstick for
-    how closely any float32 step can reach the true gradient."""
+    the plain versions, on the step's own augmented views (micro-batch a of
+    ``grad_accum`` takes rows a::grad_accum, gradients summed, then divided,
+    as the train step does): the yardstick for how closely any float32 step
+    can reach the true gradient."""
     from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
     from rot_mvgaze_tpu_torch.models import FeatRotationSymm
     from rot_mvgaze_tpu_torch.train.steps import augment_views, prepare_rotations
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    data = {**augment_views(gen, batch, 224, torch.float32), **prepare_rotations(batch)}
-    data = {k: (v.double() if k.startswith("img") else v) for k, v in data.items()}
     model = FeatRotationSymm(backbone_depth=50, num_iter=3)
     model.load_state_dict(state, strict=True)
     model = model.to(device="cuda", dtype=torch.float64, memory_format=torch.channels_last).train()
     metrics = IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
-    with plain_kernels():
-        loss = metrics(model(data))
-        loss.backward()
-    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    total = 0.0
+    for a in range(grad_accum):
+        mb = {k: v[a::grad_accum] for k, v in batch.items()}
+        data = {**augment_views(gen, mb, 224, torch.float32), **prepare_rotations(mb)}
+        data = {k: (v.double() if k.startswith("img") else v) for k, v in data.items()}
+        with plain_kernels():
+            loss = metrics(model(data))
+            loss.backward()
+        total += float(loss.detach())
+    grads = {n: p.grad.detach() / grad_accum for n, p in model.named_parameters() if p.grad is not None}
+    return total / grad_accum, grads
 
 
 def check_training_paths(fusion, batchnorm) -> dict:
     """Phase 7b: from one saved state, one step through the kernels and one
-    through the plain versions, in f32 (TF32 off) and in bf16.
+    through the plain versions, in f32 (TF32 off) and in bf16, with
+    grad_accum 1 and 2 (the trainer phase's micro-batches of 32 pairs, whose
+    BN calls have half the rows).
 
     f32 bars: loss rtol 1e-4, and every gradient within atol 5e-3 / rtol
     5e-2 of the plain path's (the JAX bar for Pallas BN against XLA through
@@ -930,52 +965,54 @@ def check_training_paths(fusion, batchnorm) -> dict:
     state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
     batch = training_batch(seed=31)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for accum, dtype in itertools.product((1, 2), (torch.float32, torch.bfloat16)):
+        per_step = {k: accum * n for k, n in PER_STEP.items()}
         runs = []
         for plain in (False, True):
-            model, step = make_trainer(state, dtype)
+            model, step = make_trainer(state, dtype, grad_accum=accum)
             reset_counts(fusion, batchnorm)
             with plain_kernels() if plain else contextlib.nullcontext():
-                stats = step(batch, torch.Generator(device="cuda").manual_seed(32))
+                stats = step(batch, torch.Generator(device="cuda").manual_seed(32), step=0)
             counts = launch_counts(fusion, batchnorm)
-            if counts != ({k: 0 for k in PER_STEP} if plain else PER_STEP):
-                raise RuntimeError(f"{'plain' if plain else 'kernel'} step launched {counts}")
+            if counts != ({k: 0 for k in PER_STEP} if plain else per_step):
+                raise RuntimeError(f"{'plain' if plain else 'kernel'} step (grad_accum {accum}) "
+                                   f"launched {counts}")
             grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
             runs.append((float(stats["loss_gaze"]), stats["pred_gaze"].float().cpu().numpy(), grads))
             del model, step
         (lk, pk, gk), (lp, pp, gp) = runs
         if set(gk) != set(gp):
             raise RuntimeError("kernel and plain steps reached different parameters")
-        name = str(dtype)[6:]
+        name = str(dtype)[6:] + ("" if accum == 1 else f"_accum{accum}")
         if dtype == torch.float32:
             np.testing.assert_allclose(lk, lp, rtol=1e-4)
-            l64, g64 = reference_step_f64(state, batch, seed=32)
+            l64, g64 = reference_step_f64(state, batch, seed=32, grad_accum=accum)
             worst, ill = 0.0, {}
             for n in gk:
                 ref = g64[n]
                 if torch.allclose(gp[n].double(), ref, atol=5e-3, rtol=5e-2):
                     worst = max(worst, (gk[n] - gp[n]).abs().max().item())
                     torch.testing.assert_close(gk[n], gp[n], atol=5e-3, rtol=5e-2,
-                                               msg=lambda m: f"grad {n}: {m}")
+                                               msg=lambda m: f"grad {n} ({name}): {m}")
                     continue
                 ek = float((gk[n].double() - ref).norm() / ref.norm())
                 ep = float((gp[n].double() - ref).norm() / ref.norm())
                 ill[n] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
                 if not ek <= 1.5 * ep:
-                    raise RuntimeError(f"grad {n}: kernel path {ek:.3e} from f64, plain {ep:.3e}")
+                    raise RuntimeError(f"grad {n} ({name}): kernel path {ek:.3e} from f64, plain {ep:.3e}")
             log(f"train step {name}, kernel vs plain: loss {lk:.8f} vs {lp:.8f} (f64 {l64:.8f}); "
                 f"{len(gk) - len(ill)} of {len(gk)} gradients within atol 5e-3 / rtol 5e-2, max "
                 f"|diff| {worst:.3e}; beyond f32's reach (plain f32 outside that bar of f64), "
                 f"norm-relative error against f64: {ill}")
-            out["f32_max_grad_diff"], out["f32_ill_conditioned"] = worst, ill
+            out[f"{name}_max_grad_diff"], out[f"{name}_ill_conditioned"] = worst, ill
         else:
             rel = abs(lk - lp) / abs(lp)
             delta = float(angular_error_numpy(pk, pp).mean())
             log(f"train step {name}, kernel vs plain: loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, bar 1e-2); "
                 f"pred_gaze mean angular delta {delta:.4e} deg (bar 0.1)")
             if not (rel <= 1e-2 and delta <= 0.1):
-                raise RuntimeError(f"bf16 training kernel path deviates: loss rel {rel}, {delta} deg")
-            out["bf16_loss_rel"], out["bf16_delta_deg"] = rel, delta
+                raise RuntimeError(f"{name} training kernel path deviates: loss rel {rel}, {delta} deg")
+            out[f"{name}_loss_rel"], out[f"{name}_delta_deg"] = rel, delta
         out[f"{name}_loss_kernel"], out[f"{name}_loss_plain"] = lk, lp
     return out
 
@@ -1217,6 +1254,198 @@ def time_bn(batchnorm, shapes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the trainer (phase 8)
+# ---------------------------------------------------------------------------
+
+
+def port_trainer(out_dir, train_ds, test_ds, **overrides):
+    """A Trainer on the card: R50 x 3 from seeded weights, bf16, 64 pairs per
+    step (drop_last), eval batches of 64, 2 epochs, a save and a print every
+    epoch and step."""
+    from types import SimpleNamespace
+
+    from rot_mvgaze_tpu_torch.data import BatchLoader
+    from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    from rot_mvgaze_tpu_torch.train import Trainer
+
+    cfg = dict(output_dir=out_dir, epochs=2, save_epoch=1, print_freq=1, seed=0, image_size=224,
+               bf16=True, scheduler_step="epoch", base_lr=1e-6, max_lr=1e-3)
+    cfg.update(overrides)
+    torch.manual_seed(0)
+    return Trainer(SimpleNamespace(**cfg), FeatRotationSymm(backbone_depth=50, num_iter=3),
+                   IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5),
+                   BatchLoader(train_ds, PAIRS, shuffle=True, drop_last=True),
+                   BatchLoader(test_ds, PAIRS), device="cuda")
+
+
+def record_steps(trainer, fusion, batchnorm) -> list:
+    """Wrap the trainer's step: each update appends its launch counts (the
+    counters' change over the step), wgmma fuser launches, loss and preview
+    shape to the returned list."""
+    steps, step_fn = [], trainer._train_step
+
+    def recorded(batch, generator=None, *, step):
+        before = launch_counts(fusion, batchnorm)
+        wgmma = fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]
+        stats = step_fn(batch, generator, step=step)
+        after = launch_counts(fusion, batchnorm)
+        steps.append({"step": step, "loss": float(stats["loss_gaze"]),
+                      "counts": {k: after[k] - before[k] for k in after},
+                      "wgmma": fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"] - wgmma,
+                      "preview": tuple(stats["img_0"].shape)})
+        return stats
+
+    trainer._train_step = recorded
+    return steps
+
+
+def check_steps(name, steps, per_step, n_steps) -> None:
+    """Every recorded update launched ``per_step`` (each fuser launch of the
+    wgmma variant), gave a finite loss and (8, 224, 224, 3) previews."""
+    if len(steps) != n_steps:
+        raise RuntimeError(f"trainer {name}: {len(steps)} updates, expected {n_steps}")
+    for s in steps:
+        if s["counts"] != per_step or s["wgmma"] != per_step["fusion"]:
+            raise RuntimeError(f"trainer {name}, update {s['step']}: launches {s['counts']} "
+                               f"({s['wgmma']} wgmma) != {per_step}")
+        if not math.isfinite(s["loss"]) or s["preview"] != (8, 224, 224, 3):
+            raise RuntimeError(f"trainer {name}, update {s['step']}: loss {s['loss']}, "
+                               f"preview {s['preview']}")
+    log(f"trainer {name}: {n_steps} updates, each {per_step} launches, losses "
+        f"{[round(s['loss'], 5) for s in steps]}")
+
+
+def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
+    """Phase 8: the port's Trainer on the card through its own BatchLoader
+    and prefetch. Returns the main path's launch counts and the numbers."""
+    from rot_mvgaze_tpu_torch.compat import read_checkpoint
+    from rot_mvgaze_tpu_torch.data import InMemoryGazeDataset
+    from rot_mvgaze_tpu_torch.evaluate import EVAL_KEYS
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+    from rot_mvgaze_tpu_torch.serving import GazePredictor
+
+    t_phase = time.perf_counter()
+    # GazeDataset's samples with no h5py: learnable synthetic subjects, 224x224;
+    # 216 training pairs (3 updates per epoch), 72 test pairs (batches of 64 + 8)
+    train_ds = InMemoryGazeDataset(2, n_frames=6, image_size=224, seed=0, learnable=True)
+    test_ds = InMemoryGazeDataset(1, n_frames=4, image_size=224, seed=100, learnable=True)
+    torch.cuda.reset_peak_memory_stats()
+    no_bn = dict.fromkeys(BN_KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- main path: 2 epochs; counts set to 0 just before, read just after
+        full = port_trainer(os.path.join(tmp, "full"), train_ds, test_ds)
+        bare_step = full._train_step
+        steps = record_steps(full, fusion, batchnorm)
+        reset_counts(fusion, batchnorm)
+        error = full.train()
+        launches = launch_counts(fusion, batchnorm)
+        by_variant = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+        check_steps("main path", steps, PER_STEP, 6)
+        evals = 3 * 2 * 6  # 3 evaluations of 2 batches, 6 float32 fuser launches each
+        want = {**{k: 6 * n for k, n in PER_STEP.items()}, "fusion": 6 * 6 + evals}
+        if launches != want or by_variant != {"wgmma": 36, "generic": evals}:
+            raise RuntimeError(f"trainer main path launched {launches} {by_variant}, expected {want}")
+        ckpts = sorted(os.listdir(full.ckpt_dir))
+        if len(ckpts) != 2 or not math.isfinite(error):
+            raise RuntimeError(f"trainer main path: error {error}, checkpoints {ckpts}")
+        epoch_1, epoch_2 = (os.path.join(full.ckpt_dir, c) for c in ckpts)
+
+        # the checkpoint's state dict strictly in GazePredictor, float32,
+        # against the Trainer's last evaluation
+        pred = GazePredictor(epoch_2, backbone_depth=50, num_iter=3, micro_batch=PAIRS,
+                             image_size=224, dtype=torch.float32, device="cuda")
+        samples = [test_ds[i] for i in range(len(test_ds))]
+        batch = {k: np.stack([s[k] for s in samples]) for k in EVAL_KEYS}
+        served = pred.predict(*(batch[k] if k.startswith("img") else batch[k].astype(np.float32)
+                                for k in EVAL_KEYS))
+        predictor_delta = float(angular_error_numpy(served, full.last_eval["pred"]).max())
+        log(f"GazePredictor (strict load of {ckpts[1]}, f32) vs Trainer.test: max angular delta "
+            f"{predictor_delta:.3e} deg over {len(served)} pairs (bar 0.1)")
+        if not predictor_delta <= 0.1:
+            raise RuntimeError(f"GazePredictor and Trainer.test differ by {predictor_delta} deg")
+        del pred
+
+        # --- images/s through train_one_epoch, and the idle share of 3 steps
+        full._train_step = bare_step
+        full.print_freq = 10**9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in (2, 3):
+            full.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        imgs_per_s = 2 * PAIRS * 6 / (time.perf_counter() - t0)
+        epochs = itertools.count(4)
+        profile = profile_device(lambda: (full.train_one_epoch(next(epochs)), torch.cuda.synchronize()),
+                                 n_iter=1)
+        del full
+        torch.cuda.empty_cache()
+
+        # --- mid-epoch save after update 4, and a resume from it
+        first = port_trainer(os.path.join(tmp, "first"), train_ds, test_ds)
+        first._preempt_requested = lambda: first.step >= 4
+        if not math.isnan(first.train()):
+            raise RuntimeError("the preempted run did not stop")
+        path = os.path.join(first.ckpt_dir, "preempt_epoch_01.pth.tar")
+        meta = read_checkpoint(path)["epoch_meta"]
+        del first
+        resumed = port_trainer(os.path.join(tmp, "resumed"), train_ds, test_ds, ckpt_resume=path)
+        resumed_steps = record_steps(resumed, fusion, batchnorm)
+        resumed_error = resumed.train()
+        del resumed
+        torch.cuda.empty_cache()
+        check_steps("resumed", resumed_steps, PER_STEP, 2)
+        loss_rel = max(abs(r["loss"] - f["loss"]) / abs(f["loss"]) for r, f in zip(resumed_steps, steps[4:]))
+        error_delta = abs(resumed_error - error)
+        log(f"resume from {meta}: updates 5-6 losses {[r['loss'] for r in resumed_steps]} vs "
+            f"{[f['loss'] for f in steps[4:]]} (max rel {loss_rel:.3e}, bar 1e-2); final error "
+            f"{resumed_error:.6f} vs {error:.6f} deg (delta {error_delta:.3e}, bar 0.1)")
+        if meta != {"epochs_done": 1, "epoch_step": 1, "steps_per_epoch": 3} or not (
+                loss_rel <= 1e-2 and error_delta <= 0.1):
+            raise RuntimeError("the resumed run does not continue the uninterrupted one")
+
+        # --- one epoch under each option, from the epoch-1 checkpoint
+        options = {}
+        for name, option, per_step in (
+            ("grad_accum", {"grad_accum": 2}, {**{k: 2 * n for k, n in PER_STEP.items()}}),
+            ("ema", {"ema_decay": 0.99}, PER_STEP),
+            ("freeze_bn", {"freeze_bn": True}, {**PER_STEP, **no_bn}),
+        ):
+            trainer = port_trainer(os.path.join(tmp, name), train_ds, test_ds, ckpt_resume=epoch_1, **option)
+            buffers = {n: b.clone() for n, b in trainer.model.named_buffers()}
+            opt_steps = record_steps(trainer, fusion, batchnorm)
+            opt_error = trainer.train()
+            check_steps(name, opt_steps, per_step, 3)
+            if name == "freeze_bn":
+                moved = [n for n, b in trainer.model.named_buffers() if not torch.equal(b, buffers[n])]
+                if moved or not any(isinstance(m, BatchNormAct) for m in trainer.model.modules()):
+                    raise RuntimeError(f"freeze_bn moved BN buffers: {moved[:5]}")
+            if name == "ema":
+                params = dict(trainer.model.named_parameters())
+                if all(torch.equal(trainer.ema[n], params[n]) for n in params):
+                    raise RuntimeError("the EMA did not move away from the parameters")
+            options[name] = {"error": opt_error, "losses": [s["loss"] for s in opt_steps]}
+            log(f"trainer {name}: final error {opt_error:.4f} deg")
+            del trainer
+            torch.cuda.empty_cache()
+    out = {
+        "train_imgs_per_s_trainer": imgs_per_s,
+        "train_imgs_per_s_bare_step": bare_imgs_per_s,
+        "device_idle_share_3_trainer_steps": profile["device_idle_share"],
+        "trainer_profile": profile,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "final_error_deg": error, "resumed_error_deg": resumed_error, "resume_loss_max_rel": loss_rel,
+        "predictor_max_delta_deg": predictor_delta, "options": options,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"trainer phase: {imgs_per_s:.1f} images/s through train_one_epoch (bare step "
+        f"{bare_imgs_per_s:.1f}), device idle {profile['device_idle_share']:.1%} over 3 steps, "
+        f"peak {out['max_memory_allocated_mb']:.0f} MiB, {out['seconds']:.1f} s")
+    return {"launches": launches, "by_variant": by_variant, "numbers": out}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -1362,10 +1591,13 @@ def main(argv=None) -> int:
     paths = check_training_paths(fusion, batchnorm)
     bn_timing = time_bn(batchnorm, trained["bn_shapes"])
     log(f"training phases took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    trainer = run_trainer_phase(fusion, batchnorm, trained["imgs_per_s"])
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
     print(json.dumps({"training_kernel_vs_plain": paths, **tag}), flush=True)
+    print(json.dumps({"trainer": trainer["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -1378,6 +1610,11 @@ def main(argv=None) -> int:
         ("train_imgs_per_s", trained["imgs_per_s"], "images/s (128 per step)"),
         ("train_max_memory_allocated_mb", trained["peak_mib"], "MiB"),
         ("train_bn_grad_layout_copies", trained["grad_copies"], "copies over 10 steps"),
+        ("trainer_imgs_per_s", trainer["numbers"]["train_imgs_per_s_trainer"],
+         "images/s through Trainer.train_one_epoch (loader, prefetch, step), 2 epochs of 3 steps"),
+        ("trainer_device_idle_share", trainer["numbers"]["device_idle_share_3_trainer_steps"],
+         "share of the host wall time over one epoch of 3 Trainer steps"),
+        ("trainer_max_memory_allocated_mb", trainer["numbers"]["max_memory_allocated_mb"], "MiB"),
     ] + [
         (f"{kind}_{key}_per_step", t[key], "ms over the step's 106 calls")
         for kind, t in bn_timing.items()
@@ -1387,10 +1624,11 @@ def main(argv=None) -> int:
 
     kernels = [{
         **FUSION,
-        "launches": served_launches + trained["launches"]["fusion"],
-        "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"]},
+        "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"],
+        "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
+                             "trainer": trainer["launches"]["fusion"]},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
-                                for k in fusion.VARIANTS},
+                                + trainer["by_variant"][k] for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1402,8 +1640,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": BN_SOURCE,
         "replaces": replaces,
-        "launches": trained["launches"][kind],
-        "launches_by_path": {"training": trained["launches"][kind]},
+        "launches": trained["launches"][kind] + trainer["launches"][kind],
+        "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind]},
         "max_abs_err": bn_err[kind],
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],

@@ -12,5 +12,7 @@ fuser as a hand-written CUDA kernel (``ops.fusion``, ``csrc/fusion.cu``); and
 the stereo training step (``train.make_train_step``: augmentation, the train
 forward, ``losses``, Adam), with train-mode BatchNorm as four hand-written
 CUDA kernels (``ops.batchnorm``, ``csrc/batchnorm.cu``) and the fuser's
-backward.
+backward; and the training runtime around the step, single process: the
+data tier (``data``), the step's options, evaluation (``evaluate``),
+checkpoints and ``train.Trainer``.
 """

@@ -1,3 +1,8 @@
-from rot_mvgaze_tpu_torch.compat.convert import load_checkpoint, state_dict_from_jax
+from rot_mvgaze_tpu_torch.compat.convert import (
+    checkpoint_state_dict,
+    load_checkpoint,
+    read_checkpoint,
+    state_dict_from_jax,
+)
 
-__all__ = ["load_checkpoint", "state_dict_from_jax"]
+__all__ = ["checkpoint_state_dict", "load_checkpoint", "read_checkpoint", "state_dict_from_jax"]

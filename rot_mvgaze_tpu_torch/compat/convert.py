@@ -13,6 +13,7 @@ JAX package's variables, as a tree of numpy arrays, into the same state dict:
 - plus ``num_batches_tracked`` (zero) per BN and the never-called backbone
   ``fc`` (zeros), which a strict load requires.
 
+:func:`read_checkpoint` tells the format from a file's contents.
 Loading the JAX package's native ``.msgpack`` checkpoints needs flax or
 msgpack and is not ported (ROADMAP A9).
 """
@@ -144,10 +145,37 @@ def state_dict_from_jax(
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pth.tar`` (a state dict, or a dict holding one
-    under ``state_dict``) onto the CPU, tensors only."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a file written by ``torch.save`` onto the CPU, tensors and plain
+    containers only. The format is told from the file's first bytes, not its
+    name: a zip archive or a pickle is ``torch.save``'s; anything else (such
+    as the JAX package's ``.msgpack``, which the port cannot read yet,
+    ROADMAP A9) raises."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if not (head == b"PK" or (len(head) == 2 and head[0] == 0x80 and 2 <= head[1] <= 5)):
+        raise ValueError(
+            f"{path} is not a torch.save file (it starts {head!r}); the JAX "
+            f"package's msgpack checkpoints do not load in the port yet"
+        )
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def checkpoint_state_dict(ckpt: Mapping[str, Any], prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The model state dict of a checkpoint: a reference ``.pth.tar`` (a
+    state dict, or a dict holding one under ``state_dict``) or the port
+    Trainer's full state, whose parameter moving average (``ema``, when the
+    run kept one) replaces the raw parameters unless ``prefer_ema`` is
+    false: the averaged weights are the ones the Trainer evaluates."""
+    if "state_dict" not in ckpt:
+        return dict(ckpt)
+    sd = dict(ckpt["state_dict"])
+    if prefer_ema and ckpt.get("ema"):
+        sd.update(ckpt["ema"])
     return sd
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of the checkpoint at ``path``
+    (:func:`read_checkpoint`, :func:`checkpoint_state_dict`)."""
+    return checkpoint_state_dict(read_checkpoint(path))

@@ -1,0 +1,38 @@
+"""The port's data tier (counterpart of ``rot_mvgaze_tpu/data``): stereo
+pair index and camera splits, HDF5 dataset, synthetic archives, host-side
+batching and prefetch to the card. Images stay raw uint8 until the train
+step's augmentation on the card."""
+
+from rot_mvgaze_tpu_torch.data.hdf5 import GazeDataset
+from rot_mvgaze_tpu_torch.data.pairing import (
+    CAMERA_TAGS,
+    NUM_CAMERAS,
+    build_pair_index,
+    build_pair_index_reference,
+    reference_pair_indices,
+    resolve_pair_index,
+)
+from rot_mvgaze_tpu_torch.data.pipeline import BatchLoader, collate, device_prefetch
+from rot_mvgaze_tpu_torch.data.synthetic import (
+    InMemoryGazeDataset,
+    synthetic_rows,
+    write_synthetic_dataset,
+    write_synthetic_h5,
+)
+
+__all__ = [
+    "BatchLoader",
+    "CAMERA_TAGS",
+    "GazeDataset",
+    "InMemoryGazeDataset",
+    "NUM_CAMERAS",
+    "build_pair_index",
+    "build_pair_index_reference",
+    "collate",
+    "device_prefetch",
+    "reference_pair_indices",
+    "resolve_pair_index",
+    "synthetic_rows",
+    "write_synthetic_dataset",
+    "write_synthetic_h5",
+]

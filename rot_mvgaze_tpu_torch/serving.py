@@ -26,6 +26,7 @@ from rot_mvgaze_tpu_torch.augment.ops import eval_preprocess
 from rot_mvgaze_tpu_torch.compat.convert import load_checkpoint
 from rot_mvgaze_tpu_torch.geometry.gaze import rotation_matrix_2d
 from rot_mvgaze_tpu_torch.models.rot_mv import FeatRotationSymm
+from rot_mvgaze_tpu_torch.utils.device import resolve_device
 from rot_mvgaze_tpu_torch.utils.padding import iter_padded_microbatches
 
 
@@ -64,17 +65,6 @@ def _validate_views(
         if np.shape(a) != (n, 2):
             raise ValueError(f"{name} must be ({n}, 2), got {np.shape(a)}")
     return n
-
-
-def resolve_device(device: Any) -> torch.device:
-    """``torch.device`` for ``device``; a CUDA device with no card raises
-    instead of carrying on on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class GazePredictor:

@@ -290,14 +290,16 @@ STEP_SHAPES = [  # the distinct (rows, C) of the BN calls of one R50 step at 64 
     (50_176, 512), (12_544, 256), (12_544, 512), (12_544, 1024), (3_136, 512), (3_136, 2_048),
     (2_450, 72),
 ]
+# and those of a grad_accum=2 micro-batch (32 pairs): bn_stats' plan depends on the rows
+STATS_SHAPES = STEP_SHAPES + [(r // 2, c) for r, c in STEP_SHAPES[:-1]]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows, c", STEP_SHAPES, ids=[f"{r}x{c}" for r, c in STEP_SHAPES])
+@pytest.mark.parametrize("rows, c", STATS_SHAPES, ids=[f"{r}x{c}" for r, c in STATS_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_bn_stats_at_every_step_shape(cuda, rows, c, dtype):
-    """bn_stats at each distinct shape of the step (rows in flight, and the
-    ragged shape's masked scalar path): in bf16 all five outputs equal the
+    """bn_stats at each distinct shape of the step and of a grad_accum=2
+    micro-batch (rows in flight, and the ragged shape's masked scalar path): in bf16 all five outputs equal the
     plain version's on the card bit for bit; in f32 they lie within 1e-5 of
     the plain version in float64 (the forward bar); two calls agree bit for
     bit."""
@@ -465,3 +467,97 @@ def test_bn_bwd_dx_matches_plain_and_repeats(cuda, case, dtype, gstats):
         assert torch.equal(dres, want_dres_t) and torch.equal(dres, dres2)
     else:
         assert dres is None
+
+
+# ---------------------------------------------------------------------------
+# the training runtime on the card: prefetch and the Trainer's step options
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_prefetch_on_the_card_matches_the_cpu_batches(cuda):
+    """Batches staged through pinned buffers on a side stream equal the
+    loader's, with the consumer's stream delayed after each batch so that a
+    buffer refilled before its copy finished would show; the ring (3
+    buffers) is reused over 11 batches."""
+    from rot_mvgaze_tpu_torch.data import BatchLoader, InMemoryGazeDataset, device_prefetch
+
+    corpus = InMemoryGazeDataset(1, n_frames=4, image_size=64, learnable=True)
+    want = list(device_prefetch(iter(BatchLoader(corpus, 7, shuffle=True, seed=3)), device="cpu"))
+    got = []
+    for batch in device_prefetch(iter(BatchLoader(corpus, 7, shuffle=True, seed=3)), device=cuda):
+        torch.cuda._sleep(2_000_000)
+        got.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 11
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert g[k].device.type == "cuda" and g[k].dtype == w[k].dtype
+            assert torch.equal(g[k].cpu(), w[k]), k
+
+
+def _card_trainer(tmp_path, **overrides):
+    from types import SimpleNamespace
+
+    from rot_mvgaze_tpu_torch.data import BatchLoader, InMemoryGazeDataset
+    from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    from rot_mvgaze_tpu_torch.train import Trainer
+
+    cfg = dict(output_dir=str(tmp_path), print_freq=1, epochs=1, save_epoch=99, image_size=64,
+               bf16=True, scheduler_step="iteration")
+    cfg.update(overrides)
+    corpus = InMemoryGazeDataset(1, n_frames=1, image_size=64, learnable=True)
+    torch.manual_seed(0)
+    return Trainer(SimpleNamespace(**cfg), FeatRotationSymm(backbone_depth=18, num_iter=2),
+                   IterationLoss(StereoL1Loss(rel_weight=0.01), iter_decay=0.5),
+                   BatchLoader(corpus, 8, shuffle=True, drop_last=True), BatchLoader(corpus, 8),
+                   device="cuda", init_state_dict=FeatRotationSymm(backbone_depth=18, num_iter=2).state_dict())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "option", [{}, {"grad_accum": 2}, {"ema_decay": 0.9}, {"freeze_bn": True}],
+    ids=["default", "grad_accum", "ema", "freeze_bn"],
+)
+def test_trainer_step_launch_counts(cuda, tmp_path, option):
+    """Each Trainer step (R18, 2 iterations, bf16, 8 pairs) launches every
+    BN kernel twice per BatchNorm (once per view) per micro-batch, none under
+    freeze_bn, and the fuser's wgmma variant 2 x 2 times per micro-batch;
+    previews come from micro-batch 0; freeze_bn leaves every BN buffer as it
+    was; the float32 eval launches the generic fuser 4 times per batch and no
+    BN kernel."""
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+
+    trainer = _card_trainer(tmp_path, **option)
+    n_bn = sum(isinstance(m, BatchNormAct) for m in trainer.model.modules())
+    accum = option.get("grad_accum", 1)
+    per_bn = 0 if option.get("freeze_bn") else 2 * n_bn * accum
+    buffers = {k: v.clone() for k, v in trainer.model.state_dict().items() if "running" in k or "tracked" in k}
+    step_fn, counts = trainer._train_step, []
+
+    def counted(batch, generator=None, *, step):
+        before = [k.launches for k in batchnorm.KERNELS] + [fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]]
+        stats = step_fn(batch, generator, step=step)
+        torch.cuda.synchronize()
+        after = [k.launches for k in batchnorm.KERNELS] + [fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]]
+        counts.append([a - b for a, b in zip(after, before)])
+        # previews: the first 8 rows of micro-batch 0
+        assert stats["img_0"].shape == (8 // accum, 64, 64, 3) and torch.isfinite(stats["loss_gaze"])
+        return stats
+
+    trainer._train_step = counted
+    trainer.train_one_epoch(0)
+    assert len(counts) == 2
+    for c in counts:
+        assert c == [per_bn] * len(batchnorm.KERNELS) + [2 * 2 * accum]
+    if option.get("freeze_bn"):
+        for k, v in trainer.model.state_dict().items():
+            if k in buffers:
+                assert torch.equal(v, buffers[k]), k
+    generic = fusion.rotate_concat_matmul_relu.launches_by_variant["generic"]
+    bn_before = [k.launches for k in batchnorm.KERNELS]
+    assert np.isfinite(trainer.test(0))
+    assert fusion.rotate_concat_matmul_relu.launches_by_variant["generic"] - generic == 4 * 3
+    assert [k.launches for k in batchnorm.KERNELS] == bn_before

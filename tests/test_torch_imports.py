@@ -45,7 +45,10 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
     assert "rot_mvgaze_tpu_torch.serving" in result["imported"]
     assert "rot_mvgaze_tpu_torch.ops.fusion" in result["imported"]
     for module in ("ops.batchnorm", "train.steps", "train.schedule", "train.trainer",
-                   "losses.gaze", "losses.stereo", "ops.conv_bn", "probe_conv_bn_epilogue"):
+                   "losses.gaze", "losses.stereo", "ops.conv_bn", "probe_conv_bn_epilogue",
+                   "data.pairing", "data.hdf5", "data.synthetic", "data.pipeline", "evaluate",
+                   "train.checkpoints", "train.tb", "utils.helper", "utils.seed",
+                   "utils.profiling", "utils.summary", "utils.device"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
 

@@ -2,7 +2,8 @@
 forward of models.FeatRotationSymm) against the JAX package on the CPU, with
 the same variables (state_dict_from_jax) and the same numpy batches. JAX
 runs its Pallas BatchNorm and fusion kernels in interpret mode
-(``use_pallas_bn=True, use_pallas_fusion=True``); the port runs their plain
+(``use_pallas_bn=True, use_pallas_fusion=True``), or for the step's options
+its plain path, the kernels' own reference; the port runs their plain
 versions. Everything is float32."""
 
 import jax
@@ -22,11 +23,21 @@ from rot_mvgaze_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from rot_mvgaze_tpu_torch.compat import state_dict_from_jax
 from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
 from rot_mvgaze_tpu_torch.models import FeatRotationSymm
-from rot_mvgaze_tpu_torch.train import cyclic_triangular2, make_optimizer, make_train_step
+from rot_mvgaze_tpu_torch.train import cyclic_triangular2, init_ema, make_optimizer, make_train_step
 
 CFG = {"backbone_depth": 18, "num_iter": 2}
 PALLAS = {"use_pallas_bn": True, "use_pallas_fusion": True}
 PAIRS, SIZE = 4, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several test processes at once; two intra-op threads
+    each keep torch from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _batch(seed=0):
@@ -144,7 +155,7 @@ def trajectories(variables):
         schedule=cyclic_triangular2(**SCHEDULE), augment=False,
     )
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    port_stats = [step(tbatch) for _ in range(3)]
+    port_stats = [step(tbatch, step=i) for i in range(3)]
     final = jax.tree.map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
     return jax_stats, port_stats, model, final
 
@@ -181,20 +192,175 @@ def test_schedule_matches_jax(steps_per_epoch):
         np.testing.assert_allclose(port(count), float(ref(count)), rtol=1e-6, err_msg=f"count {count}")
 
 
-@pytest.mark.parametrize(
-    "option",
-    [{"grad_accum": 2}, {"ema_decay": 0.999}, {"freeze_bn": True}, {"with_images": True},
-     {"fold_key_by_step": True}],
-    ids=["grad_accum", "ema", "freeze_bn", "with_images", "fold_key_by_step"],
-)
-def test_unported_step_options_raise(option):
+# options of the JAX Trainer's step, each against JAX's 3-step trajectory;
+# with_images rides with grad_accum, whose previews then come from
+# micro-batch 0 (rows 0::2), and with ema (the whole batch). The Pallas path
+# in JAX, as in the trajectories fixture: on this batch its float32
+# gradients lie nearer a float64 step's than the plain path's do.
+OPTIONS = {
+    "grad_accum": {"grad_accum": 2, "with_images": True},
+    "ema": {"ema_decay": 0.9, "with_images": True},
+    "freeze_bn": {"freeze_bn": True},
+}
+
+
+@pytest.fixture(scope="module")
+def warm_variables(variables):
+    """The variables with BatchNorm running statistics from one train-mode
+    forward on another batch: the warm start freeze_bn is meant for. From the
+    initial statistics (mean 0, var 1) one layer2.0.bn1 pre-activation of this
+    batch is 7.7e-8, and float32 rounding flips its ReLU mask in the port's
+    eval forward, not in JAX's: the port's float32 gradient then lies 0.66%
+    from a float64 step's (JAX's 1.8e-6), and after 3 updates parameters
+    differ by 8.4e-5. Such flips hit either package by chance (JAX's plain
+    train-mode gradient on this batch lies 2.4e-3 from float64)."""
+    data = jax.tree.map(jnp.asarray, _model_data(_batch(seed=3)))
+    _, updates = JaxFeatRotationSymm(**CFG).apply(variables, data, train=True, mutable=["batch_stats"])
+    return {"params": variables["params"], "batch_stats": jax.tree.map(np.asarray, updates["batch_stats"])}
+
+
+@pytest.fixture(scope="module", params=list(OPTIONS))
+def option_run(request, warm_variables):
+    """3 updates of both train steps with one option set, augment=False, on
+    the batch and JAX path of the trajectories fixture."""
+    opts = OPTIONS[request.param]
+    variables = warm_variables
+    batch = _batch(seed=1)
+    jax_metrics = JaxIterationLoss(JaxStereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
+    jax_schedule = jax_cyclic_triangular2(**SCHEDULE)
+    tx = jax_make_optimizer(jax_schedule)
+    jax_step = jax.jit(jax_make_train_step(
+        JaxFeatRotationSymm(**CFG, **PALLAS), jax_metrics, tx, image_size=SIZE, schedule=jax_schedule,
+        augment=False, **opts,
+    ))
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = TrainState(
+        step=jnp.asarray(0), params=params,
+        batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]), opt_state=tx.init(params),
+        ema_params=jax.tree.map(jnp.copy, params) if "ema_decay" in opts else None,
+    )
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    jax_stats = []
+    for _ in range(3):
+        state, stats = jax_step(state, jbatch, jax.random.PRNGKey(0))
+        jax_stats.append(jax.tree.map(np.asarray, stats))
+
+    model = _port_model(variables)
+    ema = init_ema(model) if "ema_decay" in opts else None
+    metrics = IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
+    step = make_train_step(
+        model, metrics, make_optimizer(model.parameters()), image_size=SIZE,
+        schedule=cyclic_triangular2(**SCHEDULE), augment=False, ema=ema, **opts,
+    )
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    port_stats = [step(tbatch, step=i) for i in range(3)]
+    final = jax.tree.map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
+    jax_ema = None if state.ema_params is None else jax.tree.map(np.asarray, state.ema_params)
+    return request.param, batch, jax_stats, port_stats, model, ema, final, jax_ema
+
+
+def test_option_trajectory_stats_match_jax(option_run):
+    """Loss and error at rtol 1e-4 each step; previews (with_images) equal
+    JAX's rows exactly."""
+    name, batch, jax_stats, port_stats, _, _, _, _ = option_run
+    for i, (want, got) in enumerate(zip(jax_stats, port_stats)):
+        np.testing.assert_allclose(float(got["loss_gaze"]), want["loss_gaze"], rtol=1e-4,
+                                   err_msg=f"{name} step {i}")
+        np.testing.assert_allclose(float(got["error_gaze"]), want["error_gaze"], rtol=1e-4,
+                                   err_msg=f"{name} step {i}")
+        np.testing.assert_allclose(got["lr"], want["lr"], rtol=1e-6)
+        assert got["pred_gaze"].shape == (PAIRS, 2)
+        if OPTIONS[name].get("with_images"):
+            rows = slice(0, None, 2) if name == "grad_accum" else slice(None)
+            for view in ("img_0", "img_1"):
+                assert got[view].dtype == torch.float32
+                np.testing.assert_array_equal(got[view].numpy(), want[view])
+                np.testing.assert_array_equal(got[view].numpy(), batch[view][rows][:8])
+        else:
+            assert "img_0" not in got
+
+
+def test_option_trajectory_state_matches_jax(option_run, warm_variables):
+    """Parameters after 3 updates at the bar of test_trajectory_parameters_
+    match_jax (2e-5), running statistics at 1e-4; the EMA tree at 2e-5;
+    under freeze_bn the running statistics (and num_batches_tracked) are
+    the initial ones bit for bit, as JAX's are."""
+    name, _, _, _, model, ema, final, jax_ema = option_run
+    variables = warm_variables
+    worst = _assert_state_close(model, final, atol=2e-5, keys=("weight", "bias"))
+    print(f"{name}: max |parameter difference| after 3 updates {worst:.3e}")
+    _assert_state_close(model, final, atol=1e-4, keys=("running_mean", "running_var"))
+    initial = state_dict_from_jax(variables, **CFG)
+    if name == "ema":
+        want = state_dict_from_jax({"params": jax_ema, "batch_stats": variables["batch_stats"]}, **CFG)
+        for key, value in ema.items():
+            np.testing.assert_allclose(value.numpy(), want[key].numpy(), atol=2e-5, err_msg=key)
+        params = dict(model.named_parameters())
+        key = "_gaze_estimators.1.blocks.1.0.weight"
+        assert not torch.equal(ema[key], params[key]) and not torch.equal(ema[key], initial[key])
+    if name == "freeze_bn":
+        for key, value in model.state_dict().items():
+            if "running_" in key or "num_batches_tracked" in key:
+                assert torch.equal(value, initial[key]), key
+        np.testing.assert_array_equal(
+            final["batch_stats"]["backbone"]["bn1"]["mean"], variables["batch_stats"]["backbone"]["bn1"]["mean"]
+        )
+    key = "_feat_extractor.0.bn1.weight"  # BN's affine parameters learn, frozen or not
+    assert float((model.state_dict()[key] - initial[key]).abs().max()) > 0
+
+
+def test_fold_key_by_step_draws_depend_on_seed_and_step_only():
+    """Under fold_key_by_step the augmentation draws are a function of the
+    generator's seed and the update count: the same step from another state
+    of the generator draws the same, another step draws otherwise, and the
+    caller's generator does not advance."""
+    from rot_mvgaze_tpu_torch.train.steps import augment_views, fold_seed
+
+    torch.manual_seed(0)
     model = FeatRotationSymm(backbone_depth=18, num_iter=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_train_step(model, lambda out: 0.0, make_optimizer(model.parameters()), **option)
+    seen = []
+
+    def metrics(out):
+        seen.append(out["img_0"].detach().clone())
+        return out["pred_gaze"].float().sum() * 0.0
+
+    step = make_train_step(model, metrics, make_optimizer(model.parameters()), image_size=SIZE,
+                           fold_key_by_step=True)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    batch["img_0"] = torch.from_numpy(rng.integers(0, 256, (PAIRS, SIZE, SIZE, 3), dtype=np.uint8))
+    batch["img_1"] = torch.from_numpy(rng.integers(0, 256, (PAIRS, SIZE, SIZE, 3), dtype=np.uint8))
+    gen = torch.Generator().manual_seed(11)
+    state = gen.get_state()
+    for s in (4, 5, 4):
+        step(batch, gen, step=s)
+    assert torch.equal(gen.get_state(), state)
+    other = torch.Generator().manual_seed(11)
+    torch.rand(5, generator=other)  # another state, the same seed
+    step(batch, other, step=4)
+    assert torch.equal(seen[0], seen[2]) and torch.equal(seen[0], seen[3])
+    assert not torch.equal(seen[0], seen[1])
+    want = augment_views(torch.Generator().manual_seed(fold_seed(11, 4)), batch, SIZE)["img_0"]
+    assert torch.equal(seen[0], want)
+    assert fold_seed(11, 4) != fold_seed(12, 4) != fold_seed(11, 5)
+
+
+def test_step_options_are_validated():
+    model = FeatRotationSymm(backbone_depth=18, num_iter=1)
+    opt = make_optimizer(model.parameters())
+    with pytest.raises(ValueError, match="EMA dict"):
+        make_train_step(model, lambda out: 0.0, opt, ema_decay=0.9)
+    with pytest.raises(ValueError, match="ema_decay"):
+        make_train_step(model, lambda out: 0.0, opt, ema_decay=1.0, ema=init_ema(model))
+    with pytest.raises(ValueError, match="grad_accum"):
+        make_train_step(model, lambda out: 0.0, opt, grad_accum=0)
+    step = make_train_step(model, lambda out: 0.0, opt, grad_accum=3, augment=False)
+    with pytest.raises(ValueError, match="micro-batches"):
+        step({k: torch.from_numpy(v) for k, v in _batch().items()}, step=0)
 
 
 def test_augmenting_step_needs_a_generator():
     model = FeatRotationSymm(backbone_depth=18, num_iter=1)
     step = make_train_step(model, lambda out: 0.0, make_optimizer(model.parameters()))
     with pytest.raises(ValueError, match="Generator"):
-        step({k: torch.from_numpy(v) for k, v in _batch().items()})
+        step({k: torch.from_numpy(v) for k, v in _batch().items()}, step=0)
