@@ -13,7 +13,8 @@ script exits non-zero and prints no result line:
 3. kernels: the fusion kernel against its plain PyTorch version on the
    card, at the serving shapes, B in {1, 8, 32, 50, 200} (8 and 32: the
    trainer phase's ragged f32 eval batch and grad_accum micro-batch),
-   H = 1000, R18's widths and an unaligned shape: bf16 at the model's shapes must take the wgmma
+   H = 1000, R18's widths and an unaligned shape (B = 20: the command line
+   phase's ragged f32 eval batch): bf16 at the model's shapes must take the wgmma
    variant, f32 and the unaligned shape the generic one, and each case is
    called twice, bit for bit. float32 runs with TF32 off (cuBLAS and cuDNN)
    throughout the script, so float32 means float32.
@@ -36,8 +37,9 @@ script exits non-zero and prints no result line:
    JSON line per number, tagged with the card's name and power limit.
 6. BatchNorm kernels: the four train-mode BN kernels (csrc/batchnorm.cu)
    against their plain versions run in float64, forward and backward, in
-   bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample
-   and a ragged shape, with bn_stats and bn_bwd_reduce called twice, bit
+   bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample,
+   a ragged shape and every distinct BN shape of the step at 50 pairs (the
+   command line phase's batch), with bn_stats and bn_bwd_reduce called twice, bit
    for bit, and bn_stats in bf16 bit for bit its plain version on the card;
    the fusion Function's gradients against autograd through its plain
    version at B=64.
@@ -65,7 +67,8 @@ script exits non-zero and prints no result line:
    from one saved state: f32 (TF32 off) loss rtol 1e-4 and every gradient
    atol 5e-3 / rtol 5e-2 where f32 can reach that bar of an f64 step (see
    check_training_paths); bf16 loss within 1% and mean angular delta of
-   pred_gaze <= 0.1 deg; each with grad_accum 1 and 2. Timings of the BN kernels over all 106 BN calls of
+   pred_gaze <= 0.1 deg; each at 64 pairs with grad_accum 1 and 2, and at
+   50 pairs (the command line phase's batch). Timings of the BN kernels over all 106 BN calls of
    a step (kernel, plain, each kernel's own library counterpart and the
    library's forward and backward pairs: device time, the kernels' by CUDA
    events behind a device sleep, the others' by the profiler; bound from
@@ -91,12 +94,33 @@ script exits non-zero and prints no result line:
    BN buffer bit for bit as loaded). Images/s through train_one_epoch beside
    phase 7's bare step, the device's idle share over an epoch of 3 steps,
    peak memory.
-9. the kernels line, the card line, and as the last line
+9. cli: python -m rot_mvgaze_tpu_torch's main(argv), in process, at the
+   reference's defaults otherwise (R50 x 3, bf16, --batch_size 50
+   --test_batch_size 50, --native_loader true, --pairing reference), over
+   packs written by the port's write_pack from synthetic_rows (learnable,
+   224x224) for every subject of configs/subject/xgaze.yaml (80 x 18 = 1,440
+   pairs, 28 drop-last updates) and mpiinv.yaml (270 pairs, 5 evaluation
+   batches of 50 and one of 20), each source archive an empty file dated
+   before its pack (no h5py, no archive opened). --num_views 3 and --remat
+   true exit non-zero before any data is read. The main path, --exp_name
+   xgaze2mpiinv_known --mode train --epochs 1 --save_epoch 1: both loaders
+   NativeBatchLoader over the C++ pool; counts set to 0 just before and read
+   just after, each update 106 launches of each BN kernel and 6 of the
+   fuser's wgmma variant, each float32 evaluation batch 6 of its generic
+   variant; finite losses; test_results.txt and a checkpoint. Then --mode
+   test from that checkpoint with --test_breakdown true and --export_torch:
+   the mean error within 1e-3 deg of the train run's last evaluation, and the
+   export loads strictly into GazePredictor (f32; within 0.1 deg of test
+   mode on the first batch). Images/s over the train run's updates (a smoke
+   reading, beside phase 7a's bare step), the share of that span between
+   updates (waiting for the loader, staging the batch), peak memory and the
+   phase's seconds.
+10. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-9, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-10, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -156,6 +180,8 @@ CONV = {
     "replaces": "rot_mvgaze_tpu/ops/conv_bn.py:53",
 }
 PAIRS = 64  # stereo pairs per training step (128 images)
+CLI_BATCH = 50  # the reference's --batch_size and --test_batch_size
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -194,11 +220,12 @@ def check_kernels(fusion) -> float:
     take the wgmma variant, f32 and the unaligned bf16 shape the generic
     one; every case is called twice and must agree bit for bit. b32 is a
     grad_accum=2 micro-batch of the trainer phase, b8 its float32 eval's
-    ragged last batch."""
+    ragged last batch, b20 the command line phase's."""
     cases = [
         ("serving", B, D, V, H, torch.bfloat16), ("serving", B, D, V, H, torch.float32),
         ("b1", 1, D, V, H, torch.bfloat16), ("b1", 1, D, V, H, torch.float32),
         ("b8", 8, D, V, H, torch.float32),
+        ("b20", 20, D, V, H, torch.float32),
         ("b32", 32, D, V, H, torch.bfloat16), ("b32", 32, D, V, H, torch.float32),
         ("b50", 50, D, V, H, torch.bfloat16), ("b50", 50, D, V, H, torch.float32),
         ("b200", 200, D, V, H, torch.bfloat16),
@@ -682,12 +709,13 @@ def run_conv_probe(conv_bn, tag) -> dict:
     return {"record": record, "launches": launches, "by_variant": by_variant, "r50": r50}
 
 
-def check_bn_kernels(batchnorm) -> dict:
+def check_bn_kernels(batchnorm, cases) -> dict:
     """Phase 6a: every BN kernel against its plain version in float64 on
-    the same inputs, and the two reductions called twice, bit for bit;
-    returns each kernel's max |err| over the bf16 cases."""
+    the same inputs at each of ``cases`` (name, rows, C, relu, residual),
+    and the two reductions called twice, bit for bit; returns each kernel's
+    max |err| over the bf16 cases."""
     worst = {name: 0.0 for name in BN_KERNELS}
-    for case, rows, c, relu, with_res in BN_CASES:
+    for case, rows, c, relu, with_res in cases:
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(rows + c)
             x = (torch.randn(rows, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -779,15 +807,15 @@ def check_fusion_grads(fusion) -> None:
 # ---------------------------------------------------------------------------
 
 
-def training_batch(seed: int) -> dict:
+def training_batch(seed: int, pairs: int = PAIRS) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def poses():
-        return torch.rand(PAIRS, 2, generator=g, device="cuda") * 1.2 - 0.6
+        return torch.rand(pairs, 2, generator=g, device="cuda") * 1.2 - 0.6
 
     return {
-        "img_0": torch.randint(0, 256, (PAIRS, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
-        "img_1": torch.randint(0, 256, (PAIRS, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
+        "img_0": torch.randint(0, 256, (pairs, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
+        "img_1": torch.randint(0, 256, (pairs, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
         "head_pose_0": poses(), "head_pose_1": poses(), "gt_gaze": poses(), "gt_gaze_1": poses(),
     }
 
@@ -945,9 +973,10 @@ def reference_step_f64(state, batch, seed, grad_accum=1):
 
 def check_training_paths(fusion, batchnorm) -> dict:
     """Phase 7b: from one saved state, one step through the kernels and one
-    through the plain versions, in f32 (TF32 off) and in bf16, with
-    grad_accum 1 and 2 (the trainer phase's micro-batches of 32 pairs, whose
-    BN calls have half the rows).
+    through the plain versions, in f32 (TF32 off) and in bf16: at 64 pairs
+    with grad_accum 1 and 2 (the trainer phase's micro-batches of 32 pairs,
+    whose BN calls have half the rows), and at 50 pairs with grad_accum 1
+    (the command line phase's batch, whose row counts set other BN plans).
 
     f32 bars: loss rtol 1e-4, and every gradient within atol 5e-3 / rtol
     5e-2 of the plain path's (the JAX bar for Pallas BN against XLA through
@@ -963,10 +992,13 @@ def check_training_paths(fusion, batchnorm) -> dict:
 
     torch.manual_seed(1)
     state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
-    batch = training_batch(seed=31)
     out = {}
-    for accum, dtype in itertools.product((1, 2), (torch.float32, torch.bfloat16)):
+    for (pairs, accum), dtype in itertools.product(((PAIRS, 1), (PAIRS, 2), (CLI_BATCH, 1)),
+                                                   (torch.float32, torch.bfloat16)):
+        batch = training_batch(seed=31, pairs=pairs)
         per_step = {k: accum * n for k, n in PER_STEP.items()}
+        name = (str(dtype)[6:] + ("" if accum == 1 else f"_accum{accum}")
+                + ("" if pairs == PAIRS else f"_b{pairs}"))
         runs = []
         for plain in (False, True):
             model, step = make_trainer(state, dtype, grad_accum=accum)
@@ -975,15 +1007,13 @@ def check_training_paths(fusion, batchnorm) -> dict:
                 stats = step(batch, torch.Generator(device="cuda").manual_seed(32), step=0)
             counts = launch_counts(fusion, batchnorm)
             if counts != ({k: 0 for k in PER_STEP} if plain else per_step):
-                raise RuntimeError(f"{'plain' if plain else 'kernel'} step (grad_accum {accum}) "
-                                   f"launched {counts}")
+                raise RuntimeError(f"{'plain' if plain else 'kernel'} step ({name}) launched {counts}")
             grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
             runs.append((float(stats["loss_gaze"]), stats["pred_gaze"].float().cpu().numpy(), grads))
             del model, step
         (lk, pk, gk), (lp, pp, gp) = runs
         if set(gk) != set(gp):
-            raise RuntimeError("kernel and plain steps reached different parameters")
-        name = str(dtype)[6:] + ("" if accum == 1 else f"_accum{accum}")
+            raise RuntimeError(f"kernel and plain steps ({name}) reached different parameters")
         if dtype == torch.float32:
             np.testing.assert_allclose(lk, lp, rtol=1e-4)
             l64, g64 = reference_step_f64(state, batch, seed=32, grad_accum=accum)
@@ -1446,14 +1476,229 @@ def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the command line (phase 9)
+# ---------------------------------------------------------------------------
+
+def write_cli_corpus(root: str) -> dict:
+    """Packs for every subject of configs/subject/{xgaze,mpiinv}.yaml, written
+    by the port's write_pack from synthetic_rows (learnable, 224x224, one frame
+    of 18 cameras each), under <root>/<dataset>/_rmgpack/<dataset>, where the
+    command line looks; each source archive an empty file dated before its
+    pack, so pack_dataset finds every pack current and opens no archive.
+    Returns data_path.yaml's path and the row counts."""
+    from rot_mvgaze_tpu_torch.data.packed import write_pack
+    from rot_mvgaze_tpu_torch.data.synthetic import synthetic_rows
+    from rot_mvgaze_tpu_torch.utils.config import load_yaml
+
+    rows = {}
+    past = time.time() - 3600
+    for offset, name in ((0, "xgaze"), (1000, "mpiinv")):
+        subjects = load_yaml(os.path.join(REPO, "configs", "subject", f"{name}.yaml"))["subject"]
+        cache = os.path.join(root, name, "_rmgpack", name)
+        os.makedirs(cache)
+        for i, subject in enumerate(subjects):
+            archive = os.path.join(root, name, subject)
+            open(archive, "wb").close()
+            os.utime(archive, (past, past))
+            imgs, gaze, pose = synthetic_rows(1, 18, 224, seed=offset + i, learnable=True)
+            write_pack(os.path.join(cache, subject + ".rmgpack"), *imgs.shape, [imgs], gaze, pose)
+        rows[name] = 18 * len(subjects)
+    data_path = os.path.join(root, "data_path.yaml")
+    with open(data_path, "w") as f:
+        f.write(f"# written by chip_smoke.py\nxgaze: '{root}/xgaze'\nmpiinv: '{root}/mpiinv'\n")
+    return {"data_path": data_path, "rows": rows}
+
+
+def drive_cli(argv, fusion, batchnorm) -> dict:
+    """cli.main.main(argv) in process, the Trainer it builds instrumented:
+    each update's launch counts (record_steps: the counters' change over the
+    update), each evaluation batch's, and the host clock at each update's
+    start and end."""
+    import rot_mvgaze_tpu_torch.cli.main as cli
+
+    run = {"trainer": None, "steps": [], "evals": [], "clock": []}
+    build = cli.build_experiment
+
+    def instrumented(config):
+        trainer = build(config)
+        run["trainer"] = trainer
+        run["steps"] = record_steps(trainer, fusion, batchnorm)
+        step_fn, eval_fn = trainer._train_step, trainer._eval_step
+
+        def timed(batch, generator=None, *, step):
+            t0 = time.perf_counter()
+            stats = step_fn(batch, generator, step=step)
+            run["clock"].append((t0, time.perf_counter()))  # record_steps synchronised (the loss)
+            return stats
+
+        def counted(batch, params=None):
+            before = launch_counts(fusion, batchnorm)
+            generic = fusion.rotate_concat_matmul_relu.launches_by_variant["generic"]
+            out = eval_fn(batch, params)
+            after = launch_counts(fusion, batchnorm)
+            run["evals"].append({
+                "counts": {k: after[k] - before[k] for k in after},
+                "generic": fusion.rotate_concat_matmul_relu.launches_by_variant["generic"] - generic,
+                "rows": int(batch["img_0"].shape[0])})
+            return out
+
+        trainer._train_step, trainer._eval_step = timed, counted
+        return trainer
+
+    cli.build_experiment = instrumented
+    try:
+        rc = cli.main(argv)
+    finally:
+        cli.build_experiment = build
+    if rc != 0:
+        raise RuntimeError(f"cli.main({argv}) returned {rc}")
+    return run
+
+
+def check_native_loaders(trainer, name) -> None:
+    from rot_mvgaze_tpu_torch.data.native import NativeBatchLoader
+
+    for loader in (trainer.train_loader, trainer.test_loader):
+        if not isinstance(loader, NativeBatchLoader) or loader.dataset.pool is None:
+            raise RuntimeError(f"cli {name}: {type(loader).__name__} served, not the C++ pool")
+
+
+def check_evals(name, evals, n_batches) -> None:
+    """Every float32 evaluation batch: 6 launches of the fuser's generic
+    variant, no other kernel."""
+    per_batch = {**dict.fromkeys(PER_STEP, 0), "fusion": 6}
+    if len(evals) != n_batches:
+        raise RuntimeError(f"cli {name}: {len(evals)} evaluation batches, expected {n_batches}")
+    for e in evals:
+        if e["counts"] != per_batch or e["generic"] != 6:
+            raise RuntimeError(f"cli {name}: evaluation batch of {e['rows']} launched {e['counts']} "
+                               f"({e['generic']} generic) != {per_batch}")
+
+
+def run_cli_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
+    """Phase 9: python -m rot_mvgaze_tpu_torch's main(argv) on the card, at
+    the reference's defaults (R50 x 3, bf16, batches of 50, the native
+    loader, the reference pairing), train then test, over packs of every
+    configured subject. Returns the main path's launch counts and the
+    numbers."""
+    from rot_mvgaze_tpu_torch.serving import GazePredictor
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = write_cli_corpus(tmp)
+        train_pairs, test_pairs = corpus["rows"]["xgaze"], corpus["rows"]["mpiinv"]
+        n_updates = train_pairs // CLI_BATCH
+        test_batches = -(-test_pairs // CLI_BATCH)
+        common = ["--exp_name", "xgaze2mpiinv_known", "--data_path", corpus["data_path"],
+                  "-out", os.path.join(tmp, "logs"), "--batch_size", str(CLI_BATCH),
+                  "--test_batch_size", str(CLI_BATCH), "--native_loader", "true",
+                  "--pairing", "reference"]
+
+        # refused options exit before any data is read: a data_path that does
+        # not exist would raise FileNotFoundError, not SystemExit
+        for refused in (["--num_views", "3"], ["--remat", "true"]):
+            argv = ["--exp_name", "xgaze2mpiinv_known", "--data_path", os.path.join(tmp, "absent.yaml"),
+                    *refused]
+            try:
+                drive_cli(argv, fusion, batchnorm)
+            except SystemExit as e:
+                if e.code in (0, None):
+                    raise RuntimeError(f"cli {refused}: exit code {e.code!r}")
+                log(f"cli {' '.join(refused)}: refused before reading data ({e.code})")
+            else:
+                raise RuntimeError(f"cli {refused} was not refused")
+
+        # --- main path: train, counts set to 0 just before, read just after
+        reset_counts(fusion, batchnorm)
+        train = drive_cli([*common, "--mode", "train", "--epochs", "1", "--save_epoch", "1"],
+                          fusion, batchnorm)
+        launches = launch_counts(fusion, batchnorm)
+        by_variant = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+        trainer = train["trainer"]
+        check_native_loaders(trainer, "train")
+        check_steps("cli train", train["steps"], PER_STEP, n_updates)
+        check_evals("train", train["evals"], 2 * test_batches)
+        evals = 6 * 2 * test_batches
+        want = {**{k: n_updates * n for k, n in PER_STEP.items()}, "fusion": 6 * n_updates + evals}
+        if launches != want or by_variant != {"wgmma": 6 * n_updates, "generic": evals}:
+            raise RuntimeError(f"cli train launched {launches} {by_variant}, expected {want}")
+        with open(os.path.join(trainer.output_dir, "test_results.txt")) as f:
+            results = f.read()
+        ckpts = sorted(os.listdir(trainer.ckpt_dir))
+        train_error = float(np.mean(trainer.last_eval["errors"]))
+        if len(ckpts) != 1 or results.count("error:") != 2 or not math.isfinite(train_error):
+            raise RuntimeError(f"cli train: checkpoints {ckpts}, test_results.txt {results!r}")
+        clock = train["clock"]
+        span = clock[-1][1] - clock[0][0]
+        waits = sum(b[0] - a[1] for a, b in zip(clock, clock[1:]))
+        imgs_per_s = 2 * CLI_BATCH * n_updates / span
+        ckpt = os.path.join(trainer.ckpt_dir, ckpts[0])
+        del trainer, train
+        torch.cuda.empty_cache()
+
+        # --- test mode from that checkpoint, with the breakdown and an export
+        export = os.path.join(tmp, "exported.pth.tar")
+        reset_counts(fusion, batchnorm)
+        test = drive_cli([*common, "--mode", "test", "--ckpt_resume", ckpt, "--test_breakdown", "true",
+                          "--export_torch", export], fusion, batchnorm)
+        test_launches = launch_counts(fusion, batchnorm)
+        tester = test["trainer"]
+        check_native_loaders(tester, "test")
+        check_evals("test", test["evals"], test_batches)
+        test_error = float(np.mean(tester.last_eval["errors"]))
+        delta = abs(test_error - train_error)
+        with open(os.path.join(tester.output_dir, "test_results.txt")) as f:
+            report = f.read()
+        log(f"cli test from {ckpts[0]}: {test_error:.6f} deg against the train run's last evaluation "
+            f"{train_error:.6f} (delta {delta:.3e}, bar 1e-3); breakdown "
+            f"{report.count('deg (n=')} groups")
+        if not delta <= 1e-3 or "per_camera:" not in report or "per_subject:" not in report:
+            raise RuntimeError(f"cli test: error {test_error} vs {train_error}, report {report!r}")
+
+        # the export strictly into GazePredictor (its constructor loads with
+        # strict=True), against test mode's predictions on the first batch
+        pred = GazePredictor(export, backbone_depth=50, num_iter=3, micro_batch=CLI_BATCH,
+                             image_size=224, dtype=torch.float32, device="cuda")
+        ds = tester.test_loader.dataset
+        samples = [ds[i] for i in range(CLI_BATCH)]
+        served = pred.predict(*(np.stack([s[k] for s in samples]).astype(np.float32)
+                                if k.startswith("head") else np.stack([s[k] for s in samples])
+                                for k in pred.request_fields))
+        from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+
+        export_delta = float(angular_error_numpy(served, tester.last_eval["pred"][:CLI_BATCH]).max())
+        log(f"exported {os.path.basename(export)} loads strictly into GazePredictor (f32): max "
+            f"angular delta {export_delta:.3e} deg from test mode over {CLI_BATCH} pairs (bar 0.1)")
+        if not export_delta <= 0.1:
+            raise RuntimeError(f"the exported checkpoint predicts {export_delta} deg from test mode")
+        del pred, tester, test
+        torch.cuda.empty_cache()
+    out = {
+        "train_pairs": train_pairs, "test_pairs": test_pairs, "updates": n_updates,
+        "imgs_per_s_over_updates": imgs_per_s, "bare_step_imgs_per_s": bare_imgs_per_s,
+        "loader_wait_share": waits / span,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "train_error_deg": train_error, "test_error_deg": test_error, "test_delta_deg": delta,
+        "export_max_delta_deg": export_delta, "test_launches": test_launches,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"cli phase: {imgs_per_s:.1f} images/s over {n_updates} updates (bare step "
+        f"{bare_imgs_per_s:.1f}), {out['loader_wait_share']:.1%} of it between updates, peak "
+        f"{out['max_memory_allocated_mb']:.0f} MiB, {out['seconds']:.1f} s")
+    return {"launches": launches, "by_variant": by_variant, "numbers": out}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
 
-def step_bn_shapes() -> list:
+def step_bn_shapes(pairs: int = PAIRS) -> list:
     """((N, C, H, W), relu, residual) of the 106 BN calls of one R50
-    training step at 64 pairs: the backbone once per view, as the step runs
-    it (eval mode, so that no kernel is needed to find the shapes)."""
+    training step at ``pairs`` pairs: the backbone once per view, as the
+    step runs it (eval mode, so that no kernel is needed to find the
+    shapes)."""
     from rot_mvgaze_tpu_torch.models import FeatRotationSymm
 
     torch.manual_seed(0)
@@ -1461,7 +1706,7 @@ def step_bn_shapes() -> list:
     backbone = backbone.to(device="cuda", memory_format=torch.channels_last).eval()
     shapes = []
     hooks = record_bn_shapes(backbone, shapes)
-    x = torch.zeros(PAIRS, 224, 224, 3, device="cuda")  # NHWC, as the backbone takes it
+    x = torch.zeros(pairs, 224, 224, 3, device="cuda")  # NHWC, as the backbone takes it
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         for _ in range(2):
             backbone(x)
@@ -1470,6 +1715,15 @@ def step_bn_shapes() -> list:
     if len(shapes) != 106:
         raise RuntimeError(f"{len(shapes)} BN calls in a step, expected 106")
     return shapes
+
+
+def step_bn_cases(pairs: int) -> list:
+    """Every distinct BN shape of the R50 step at ``pairs`` pairs, as
+    BN_CASES entries (name, rows, C, relu, residual)."""
+    cases = {}
+    for (n, c, h, w), relu, res in step_bn_shapes(pairs):
+        cases.setdefault((n * h * w, c, relu, res), None)
+    return [(f"{pairs}-pair step", rows, c, relu, res) for rows, c, relu, res in cases]
 
 
 TURN_KERNELS = ("bn_bwd_dx", "bn_bwd_reduce", "bn_stats", "bn_apply")
@@ -1565,7 +1819,7 @@ def main(argv=None) -> int:
         print(f"--- nvcc -Xptxas -v: {src}\n{report.strip()}", flush=True)
 
     max_abs_err = check_kernels(fusion)
-    bn_err = check_bn_kernels(batchnorm)
+    bn_err = check_bn_kernels(batchnorm, BN_CASES + step_bn_cases(CLI_BATCH))
     check_fusion_grads(fusion)
     conv_err = check_conv_kernel(conv_bn)
     conv = run_conv_probe(conv_bn, tag)
@@ -1593,11 +1847,14 @@ def main(argv=None) -> int:
     log(f"training phases took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     trainer = run_trainer_phase(fusion, batchnorm, trained["imgs_per_s"])
+    torch.cuda.empty_cache()
+    cli = run_cli_phase(fusion, batchnorm, trained["imgs_per_s"])
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
     print(json.dumps({"training_kernel_vs_plain": paths, **tag}), flush=True)
     print(json.dumps({"trainer": trainer["numbers"], **tag}), flush=True)
+    print(json.dumps({"cli": cli["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -1615,6 +1872,13 @@ def main(argv=None) -> int:
         ("trainer_device_idle_share", trainer["numbers"]["device_idle_share_3_trainer_steps"],
          "share of the host wall time over one epoch of 3 Trainer steps"),
         ("trainer_max_memory_allocated_mb", trainer["numbers"]["max_memory_allocated_mb"], "MiB"),
+        ("cli_imgs_per_s", cli["numbers"]["imgs_per_s_over_updates"],
+         "images/s over the command line's 28 updates of 50 pairs (first start to last end, host "
+         "clock; a smoke reading)"),
+        ("cli_loader_wait_share", cli["numbers"]["loader_wait_share"],
+         "share of that span between updates (loader wait and batch staging)"),
+        ("cli_max_memory_allocated_mb", cli["numbers"]["max_memory_allocated_mb"], "MiB"),
+        ("cli_phase_seconds", cli["numbers"]["seconds"], "s (corpus, train, test, export)"),
     ] + [
         (f"{kind}_{key}_per_step", t[key], "ms over the step's 106 calls")
         for kind, t in bn_timing.items()
@@ -1624,11 +1888,13 @@ def main(argv=None) -> int:
 
     kernels = [{
         **FUSION,
-        "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"],
+        "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
+                    + cli["launches"]["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
-                             "trainer": trainer["launches"]["fusion"]},
+                             "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"]},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
-                                + trainer["by_variant"][k] for k in fusion.VARIANTS},
+                                + trainer["by_variant"][k] + cli["by_variant"][k]
+                                for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1640,8 +1906,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": BN_SOURCE,
         "replaces": replaces,
-        "launches": trained["launches"][kind] + trainer["launches"][kind],
-        "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind]},
+        "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind],
+        "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
+                             "cli": cli["launches"][kind]},
         "max_abs_err": bn_err[kind],
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],

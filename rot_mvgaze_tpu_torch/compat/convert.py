@@ -13,18 +13,23 @@ JAX package's variables, as a tree of numpy arrays, into the same state dict:
 - plus ``num_batches_tracked`` (zero) per BN and the never-called backbone
   ``fc`` (zeros), which a strict load requires.
 
-:func:`read_checkpoint` tells the format from a file's contents.
-Loading the JAX package's native ``.msgpack`` checkpoints needs flax or
-msgpack and is not ported (ROADMAP A9).
+:func:`read_checkpoint` reads a ``torch.save`` file or the JAX package's
+``.msgpack`` (through :mod:`rot_mvgaze_tpu_torch.compat.msgpack`, without
+flax), telling the format from the file's contents; :func:`state_from_jax`
+turns a parsed JAX checkpoint (bare variables or a full ``TrainState``)
+into the port Trainer's checkpoint: the model's state dict, Adam's moments
+and counts, the moving average, the step and the epoch position.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from rot_mvgaze_tpu_torch.compat import msgpack
 
 STAGE_SIZES = {
     18: (2, 2, 2, 2),
@@ -112,6 +117,8 @@ def _lookup(tree: Mapping[str, Any], path: Sequence[str]) -> np.ndarray:
     node: Any = tree
     for p in path:
         node = node[p]
+    if isinstance(node, torch.Tensor):  # a bfloat16 leaf: widened to float32, exactly
+        return node.float().numpy()
     return np.asarray(node)
 
 
@@ -146,19 +153,91 @@ def state_dict_from_jax(
 
 
 def read_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a file written by ``torch.save`` onto the CPU, tensors and plain
-    containers only. The format is told from the file's first bytes, not its
-    name: a zip archive or a pickle is ``torch.save``'s; anything else (such
-    as the JAX package's ``.msgpack``, which the port cannot read yet,
-    ROADMAP A9) raises."""
+    """Read a checkpoint onto the CPU, telling the format from the file's
+    first bytes, not its name: a zip archive, or a pickle (``0x80`` then its
+    protocol, 2 to 5), is ``torch.save``'s (tensors and plain containers
+    only); a map whose first key is a string (``0x80 + n`` then a string's
+    type byte) is the JAX package's msgpack, returned as the tree flax
+    reads (numpy leaves). Anything else raises ``ValueError``."""
     with open(path, "rb") as f:
         head = f.read(2)
-    if not (head == b"PK" or (len(head) == 2 and head[0] == 0x80 and 2 <= head[1] <= 5)):
-        raise ValueError(
-            f"{path} is not a torch.save file (it starts {head!r}); the JAX "
-            f"package's msgpack checkpoints do not load in the port yet"
-        )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    if head == b"PK" or (len(head) == 2 and head[0] == 0x80 and 2 <= head[1] <= 5):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    is_map, why = msgpack.looks_like_msgpack_map(head)
+    if not is_map:
+        raise ValueError(f"{path} is not a torch.save file nor a msgpack checkpoint "
+                         f"(it starts {head!r}: {why})")
+    return msgpack.load(path)
+
+
+def is_jax_tree(ckpt: Any) -> bool:
+    """Whether a read checkpoint is the JAX package's (``params`` at the top
+    rather than the port's ``state_dict`` or a bare reference state dict)."""
+    return isinstance(ckpt, dict) and "params" in ckpt and isinstance(ckpt["params"], dict)
+
+
+def _parameters(converted: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The parameters of a converted state dict (no BN buffers)."""
+    buffers = ("running_mean", "running_var", "num_batches_tracked")
+    return {k: v for k, v in converted.items() if not k.endswith(buffers)}
+
+
+def state_from_jax(
+    tree: Mapping[str, Any],
+    param_names: Optional[Sequence[str]] = None,
+    backbone_depth: Any = 50,
+    num_iter: int = 3,
+    share_weights: bool = False,
+) -> Dict[str, Any]:
+    """A parsed JAX checkpoint (``variables_from_tree``'s input: ``params``,
+    ``batch_stats``, and in a full ``TrainState`` ``opt_state``, ``step``,
+    optional ``ema_params`` and ``epoch_meta``) as the port Trainer's
+    checkpoint (``train/checkpoints.py``):
+
+    - ``state_dict``: the raw parameters and BN statistics
+      (:func:`state_dict_from_jax`);
+    - ``ema``: ``ema_params`` by state-dict key, when the tree has them;
+    - for a full state (``opt_state`` in the tree, whatever the file's
+      name): ``optimizer``, Adam's ``state`` by index of ``param_names``
+      (the model's ``named_parameters()`` order, which is the optimizer's):
+      optax's ``scale_by_adam`` ``mu``/``nu`` as ``exp_avg``/``exp_avg_sq``
+      with the weights' transposes, ``count`` as ``step``; parameters JAX
+      does not have (the backbone's never-called ``fc``) get no state, as
+      Adam gives none to a parameter without a gradient. ``step`` and
+      ``epoch_meta`` (when saved) as they are.
+
+    A tree with ``params`` and no ``batch_stats`` is refused: pairing
+    trained weights with initial BN statistics would evaluate garbage."""
+    if "params" not in tree:
+        raise ValueError(f"checkpoint has no 'params': {list(tree)}")
+    if not tree.get("batch_stats"):
+        raise ValueError("checkpoint has no 'batch_stats' but the model uses BatchNorm; refusing to "
+                         "pair trained params with freshly initialised statistics")
+    cfg = dict(backbone_depth=backbone_depth, num_iter=num_iter, share_weights=share_weights)
+    batch_stats = tree["batch_stats"]
+    out: Dict[str, Any] = {"state_dict": state_dict_from_jax(tree, **cfg)}
+    if tree.get("ema_params") is not None:
+        out["ema"] = _parameters(state_dict_from_jax(
+            {"params": tree["ema_params"], "batch_stats": batch_stats}, **cfg))
+    if "opt_state" not in tree:
+        return out
+    if param_names is None:
+        raise ValueError("a full JAX state needs param_names (the model's named_parameters order)")
+    adam = [s for s in tree["opt_state"].values() if isinstance(s, dict) and "mu" in s]
+    if len(adam) != 1:
+        raise ValueError("opt_state holds no single scale_by_adam state (count, mu, nu)")
+    adam = adam[0]
+    mu = state_dict_from_jax({"params": adam["mu"], "batch_stats": batch_stats}, **cfg)
+    nu = state_dict_from_jax({"params": adam["nu"], "batch_stats": batch_stats}, **cfg)
+    count = torch.tensor(float(np.asarray(adam["count"])))
+    out["optimizer"] = {"state": {
+        i: {"step": count.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        for i, n in enumerate(param_names) if not n.startswith("_feat_extractor.0.fc.")
+    }}
+    out["step"] = int(np.asarray(tree["step"]))
+    if tree.get("epoch_meta") is not None:
+        out["epoch_meta"] = {k: int(v) for k, v in tree["epoch_meta"].items()}
+    return out
 
 
 def checkpoint_state_dict(ckpt: Mapping[str, Any], prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
@@ -175,7 +254,16 @@ def checkpoint_state_dict(ckpt: Mapping[str, Any], prefer_ema: bool = True) -> D
     return sd
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+def load_checkpoint(
+    path: str, backbone_depth: Any = 50, num_iter: int = 3, share_weights: bool = False
+) -> Dict[str, torch.Tensor]:
     """The model state dict of the checkpoint at ``path``
-    (:func:`read_checkpoint`, :func:`checkpoint_state_dict`)."""
-    return checkpoint_state_dict(read_checkpoint(path))
+    (:func:`read_checkpoint`, :func:`checkpoint_state_dict`); a JAX
+    checkpoint is converted for the model of the given configuration, its
+    moving average preferred."""
+    ckpt = read_checkpoint(path)
+    if is_jax_tree(ckpt):  # the weights alone: no optimizer state to convert
+        weights = {k: v for k, v in ckpt.items() if k != "opt_state"}
+        ckpt = state_from_jax(weights, backbone_depth=backbone_depth, num_iter=num_iter,
+                              share_weights=share_weights)
+    return checkpoint_state_dict(ckpt)

@@ -121,7 +121,9 @@ class FeatRotationSymm(nn.Module):
                 raise NotImplementedError(
                     f"{name} is not ported yet (ROADMAP A5)"
                 )
+        self.backbone_depth = backbone_depth
         self.num_iter = num_iter
+        self.share_weights = share_weights
         self.num_feat_vec = num_feat_vec
         backbone = BACKBONES[backbone_depth]()
         fc_dim = backbone.feature_dim

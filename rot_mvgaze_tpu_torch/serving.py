@@ -97,7 +97,9 @@ class GazePredictor:
             num_iter=num_iter,
             share_weights=share_weights,
         )
-        model.load_state_dict(load_checkpoint(checkpoint), strict=True)
+        model.load_state_dict(
+            load_checkpoint(checkpoint, backbone_depth, num_iter, share_weights), strict=True
+        )
         self.model = model.to(
             device=self.device, dtype=dtype, memory_format=torch.channels_last
         ).eval()

@@ -9,10 +9,14 @@
   mid-epoch resume, a save at the next step boundary on SIGTERM or SIGINT,
   a TensorBoard event file, ``test_results.txt`` and a config snapshot.
 
+It also starts from the JAX package's ``.msgpack`` checkpoints (a full
+``TrainState`` continues its run: Adam's moments, the step, the moving
+average and the epoch position) and from an ImageNet backbone
+(``pretrained_backbone``), and exports the bare reference state dict
+(:meth:`Trainer.export_torch_checkpoint`).
+
 Not ported yet: the V-view stack (ROADMAP A11), meshes, several hosts and
-their preemption agreement (A13), profiler traces, ``pretrained_backbone``
-and loading the JAX package's ``.msgpack`` checkpoints (A9). The port's
-checkpoint already has the reference's key names, so it needs no export.
+their preemption agreement (A13) and profiler traces.
 """
 
 from __future__ import annotations
@@ -28,7 +32,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from rot_mvgaze_tpu_torch.compat.convert import checkpoint_state_dict, read_checkpoint
+from rot_mvgaze_tpu_torch.compat.convert import (
+    checkpoint_state_dict,
+    is_jax_tree,
+    read_checkpoint,
+    state_from_jax,
+)
+from rot_mvgaze_tpu_torch.compat.pretrained import load_pretrained_backbone, resolve_pretrained
 from rot_mvgaze_tpu_torch.data.pipeline import device_prefetch
 from rot_mvgaze_tpu_torch.evaluate import breakdown_from_errors, eval_predictions, format_breakdown
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
@@ -72,8 +82,14 @@ class Trainer:
     where it is absent.
 
     ``model`` brings its own weights; ``init_state_dict`` loads others
-    first, and a checkpoint (``ckpt_resume`` or the newest in
-    ``auto_resume_dir``) after that. The model moves to ``device`` (the
+    first, then ``pretrained_backbone`` (a torchvision ResNet file, or
+    ``auto`` for the cached one) the backbone's, and a checkpoint
+    (``ckpt_resume`` or the newest ``*.pth.tar`` in ``auto_resume_dir``)
+    after that. A checkpoint is the port's, a reference state dict or the
+    JAX package's ``.msgpack``, told apart by its contents; a full training
+    state (the port's, or a JAX ``TrainState``: ``opt_state`` in the tree)
+    continues its run unless ``weights_only``, and a weights-only load takes
+    the moving average when there is one. The model moves to ``device`` (the
     card unless the caller asks for the CPU). Evaluation always runs in
     float32, on the moving average of the parameters when there is one.
     ``step`` counts the updates made (the JAX package's ``state.step``); it
@@ -124,13 +140,24 @@ class Trainer:
                 "(optimizer state and step); a weights-only warm start discards them"
             )
         self._resume_path = ckpt_resume
-        warm_start = ckpt_resume is not None or init_state_dict is not None
+        pretrained = getattr(config, "pretrained_backbone", None)
+        warm_start = ckpt_resume is not None or init_state_dict is not None or bool(pretrained)
         if init_state_dict is not None:
             model.load_state_dict(init_state_dict, strict=True)
+        if pretrained:
+            pretrained = resolve_pretrained(pretrained, model.backbone_depth)
+            load_pretrained_backbone(model, pretrained)
+            print(f"backbone initialized from {pretrained}")
         ckpt, full = None, False
         if ckpt_resume:
             print(f"load from ckpt: {ckpt_resume}")
             ckpt = read_checkpoint(ckpt_resume)
+            if is_jax_tree(ckpt):
+                ckpt = state_from_jax(
+                    ckpt, [n for n, _ in model.named_parameters()],
+                    backbone_depth=model.backbone_depth, num_iter=model.num_iter,
+                    share_weights=model.share_weights,
+                )
             full = is_full_state(ckpt) and not self._weights_only
             # a weights-only start takes the moving average, the weights a
             # run evaluates; a full resume continues from the raw parameters
@@ -161,7 +188,9 @@ class Trainer:
         self.ema = init_ema(self.model) if self._ema_decay > 0 else None
         resume_meta = None
         if full:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            # a state converted from JAX holds Adam's state alone; the
+            # hyperparameters stay this run's
+            self.optimizer.load_state_dict({**self.optimizer.state_dict(), **ckpt["optimizer"]})
             self.step = int(ckpt["step"])
             resume_meta = ckpt.get("epoch_meta")
             stored = ckpt.get("ema")
@@ -409,13 +438,7 @@ class Trainer:
                            "steps_per_epoch": int(self.steps_per_epoch)},
         }
         if self.ema is not None:
-            # by state-dict key, aliases of a shared parameter included, so
-            # that the average overlays the state dict as it is
-            first = {}
-            payload["ema"] = {
-                n: self.ema[first.setdefault(id(p), n)]
-                for n, p in self.model.named_parameters(remove_duplicate=False)
-            }
+            payload["ema"] = self._ema_by_key()
         save_state(path, payload)
         print(f"save file to: {path}")
         keep = int(getattr(self.config, "keep_last_n", 0) or 0)
@@ -424,6 +447,23 @@ class Trainer:
             for old in ckpts[:-keep]:
                 os.remove(old)
         return path
+
+    def export_torch_checkpoint(self, path: str) -> str:
+        """Save the bare reference state dict (the moving average's weights
+        when there is one, the weights :meth:`test` scores) to ``path``: the
+        file ``GazePredictor`` and the reference load with ``strict=True``."""
+        sd = self.model.state_dict()
+        if self.ema is not None:
+            sd.update(self._ema_by_key())
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()}, path)
+        return path
+
+    def _ema_by_key(self) -> Dict[str, torch.Tensor]:
+        """The moving average by state-dict key, aliases of a shared
+        parameter included, so that it overlays the state dict as it is."""
+        first: Dict[int, str] = {}
+        return {n: self.ema[first.setdefault(id(p), n)]
+                for n, p in self.model.named_parameters(remove_duplicate=False)}
 
 
 def _jsonable(v: Any) -> bool:

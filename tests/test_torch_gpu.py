@@ -290,16 +290,18 @@ STEP_SHAPES = [  # the distinct (rows, C) of the BN calls of one R50 step at 64 
     (50_176, 512), (12_544, 256), (12_544, 512), (12_544, 1024), (3_136, 512), (3_136, 2_048),
     (2_450, 72),
 ]
-# and those of a grad_accum=2 micro-batch (32 pairs): bn_stats' plan depends on the rows
-STATS_SHAPES = STEP_SHAPES + [(r // 2, c) for r, c in STEP_SHAPES[:-1]]
+# and those of a grad_accum=2 micro-batch (32 pairs) and of the command line's
+# batch (50 pairs): bn_stats' plan depends on the rows
+STATS_SHAPES = (STEP_SHAPES + [(r // 2, c) for r, c in STEP_SHAPES[:-1]]
+                + [(r * 50 // 64, c) for r, c in STEP_SHAPES[:-1]])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows, c", STATS_SHAPES, ids=[f"{r}x{c}" for r, c in STATS_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_bn_stats_at_every_step_shape(cuda, rows, c, dtype):
-    """bn_stats at each distinct shape of the step and of a grad_accum=2
-    micro-batch (rows in flight, and the ragged shape's masked scalar path): in bf16 all five outputs equal the
+    """bn_stats at each distinct shape of the step, of a grad_accum=2
+    micro-batch and of a 50-pair step (rows in flight, and the ragged shape's masked scalar path): in bf16 all five outputs equal the
     plain version's on the card bit for bit; in f32 they lie within 1e-5 of
     the plain version in float64 (the forward bar); two calls agree bit for
     bit."""

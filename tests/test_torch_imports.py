@@ -1,6 +1,9 @@
 """The port (rot_mvgaze_tpu_torch) and chip_smoke.py stand on torch and numpy
 alone: importing them loads neither JAX nor the JAX package, and no source
-file names either in an import, not even inside a function."""
+file names either in an import, not even inside a function. Importing every
+module and parsing a command line also loads none of msgpack, yaml and
+h5py, which the card's machine does not have (h5py is imported only where
+an HDF5 archive is opened)."""
 
 import ast
 import json
@@ -14,7 +17,8 @@ import pytest
 import torch  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rot_mvgaze_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rot_mvgaze_tpu", "msgpack", "yaml")
+NOT_ON_THE_CARD = ("msgpack", "yaml", "h5py")
 PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "rot_mvgaze_tpu_torch").rglob("*.py")
 ) + ["chip_smoke.py"]
@@ -33,6 +37,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from rot_mvgaze_tpu_torch.cli.main import get_parser
+get_parser().parse_args(["--exp_name", "xgaze2mpiinv_known", "--mode", "test", "--ckpt_resume", "x.msgpack"])
 print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -48,9 +54,12 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                    "losses.gaze", "losses.stereo", "ops.conv_bn", "probe_conv_bn_epilogue",
                    "data.pairing", "data.hdf5", "data.synthetic", "data.pipeline", "evaluate",
                    "train.checkpoints", "train.tb", "utils.helper", "utils.seed",
-                   "utils.profiling", "utils.summary", "utils.device"):
+                   "utils.profiling", "utils.summary", "utils.device", "utils.config",
+                   "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "cli.main",
+                   "__main__"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
+    assert [m for m in result["loaded"] if m.split(".")[0] in NOT_ON_THE_CARD] == []
 
 
 @pytest.mark.parametrize("path", PORT_FILES)

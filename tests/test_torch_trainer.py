@@ -336,9 +336,9 @@ def test_trainer_checks_its_configuration(tmp_path, corpus):
 
 def test_checkpoint_files_are_written_atomically(tmp_path):
     """A failed save leaves the previous file whole and no temporary file; a
-    temporary name never matches the checkpoint glob; a file that is not a
-    torch.save file (such as the JAX package's msgpack) is refused by its
-    contents."""
+    temporary name never matches the checkpoint glob; the format is told by
+    the contents, not the name: a truncated msgpack under a .pth.tar name
+    raises in the msgpack reader, and a file of neither format is refused."""
     path = str(tmp_path / "ckpt.pth.tar")
     save_state(path, {"a": torch.arange(4)})
     before = open(path, "rb").read()
@@ -351,5 +351,9 @@ def test_checkpoint_files_are_written_atomically(tmp_path):
     assert find_latest_checkpoint(str(tmp_path)) == path
     msgpack = tmp_path / "jax.pth.tar"
     msgpack.write_bytes(b"\x85\xa4step\x03")
-    with pytest.raises(ValueError, match="not a torch.save file"):
+    with pytest.raises(ValueError, match="truncated msgpack"):
         read_checkpoint(str(msgpack))
+    other = tmp_path / "other.pth.tar"
+    other.write_bytes(b"\x00\x01not a checkpoint")
+    with pytest.raises(ValueError, match="not a torch.save file"):
+        read_checkpoint(str(other))
