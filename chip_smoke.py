@@ -101,8 +101,7 @@ script exits non-zero and prints no result line:
    224x224) for every subject of configs/subject/xgaze.yaml (80 x 18 = 1,440
    pairs, 28 drop-last updates) and mpiinv.yaml (270 pairs, 5 evaluation
    batches of 50 and one of 20), each source archive an empty file dated
-   before its pack (no h5py, no archive opened). --num_views 3 and --remat
-   true exit non-zero before any data is read. The main path, --exp_name
+   before its pack (no h5py, no archive opened). The main path, --exp_name
    xgaze2mpiinv_known --mode train --epochs 1 --save_epoch 1: both loaders
    NativeBatchLoader over the C++ pool; counts set to 0 just before and read
    just after, each update 106 launches of each BN kernel and 6 of the
@@ -114,13 +113,38 @@ script exits non-zero and prints no result line:
    mode on the first batch). Images/s over the train run's updates (a smoke
    reading, beside phase 7a's bare step), the share of that span between
    updates (waiting for the loader, staging the batch), peak memory and the
-   phase's seconds.
-10. the kernels line, the card line, and as the last line
+   phase's seconds. --num_views 3 --grad_accum 2 and --remat true exit
+   non-zero before any data is read.
+10. model family: R50 x 3 at full width. (a) The main path: one bf16
+   update of 64 pairs (or frames) of each configuration beyond the default
+   one, counts set to 0 just before and read just after: --fuse_views 53
+   launches of each BN kernel and 6 of the fuser's wgmma variant;
+   --ignore_rotmat, --encode_rotmat and --share_feature 106 and 0 (their
+   fusers are F.linear MLPs, as in JAX); --share_weights 106 and 6; the
+   V-view model at V=3 (FeatRotationMultiView, 192 images in one backbone
+   batch) 53 and 0; every loss finite; then 5 bare updates each of
+   fuse_views and V=3 on the host clock. (b) For fuse_views and V=3, one
+   update through the kernels against one through the plain versions from
+   one saved state, at phase 7b's bars (f32 against an f64 update too).
+   (c) The four BN kernels against float64 (phase 6a's check) at every
+   distinct BN shape of both. (d) The V-view Trainer from phase 8's
+   epoch-1 stereo checkpoint (a strict load, weights only): one epoch of 3
+   updates over an in-memory V=3 corpus (InMemoryMultiViewGazeDataset, 216
+   samples; 72 test samples), evaluation before and after, 53 BN launches
+   per update and none in evaluation, finite predictions; at V=2 the V-view
+   model's eval predictions on one batch of 64 within 1e-3 deg (float64
+   angle) of the stereo model's, with both in float64 and with both in
+   float32 (the stereo model on its fuser kernel), and in float32 within
+   phase 4's f32 bar on pred_gaze. (e) The BN kernels' device ms over
+   each fused-batch update's 53 calls and their share of the byte bound,
+   beside phase 7c's 106 calls of the default update; images/s, peak
+   memory, the phase's seconds.
+11. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-10, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-11, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -142,6 +166,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -807,35 +832,69 @@ def check_fusion_grads(fusion) -> None:
 # ---------------------------------------------------------------------------
 
 
-def training_batch(seed: int, pairs: int = PAIRS) -> dict:
+def training_batch(seed: int, pairs: int = PAIRS, views: int = 2) -> dict:
+    """Seeded uint8 views and float labels of ``pairs`` stereo pairs, or
+    with ``views > 2`` of that many frames of V views ({imgs, head_poses,
+    gt_gazes})."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def poses():
-        return torch.rand(pairs, 2, generator=g, device="cuda") * 1.2 - 0.6
+    def poses(*shape):
+        return torch.rand(*shape, 2, generator=g, device="cuda") * 1.2 - 0.6
 
+    if views > 2:
+        return {"imgs": torch.randint(0, 256, (pairs, views, 224, 224, 3), dtype=torch.uint8, device="cuda",
+                                      generator=g),
+                "head_poses": poses(pairs, views), "gt_gazes": poses(pairs, views)}
     return {
         "img_0": torch.randint(0, 256, (pairs, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
         "img_1": torch.randint(0, 256, (pairs, 224, 224, 3), dtype=torch.uint8, device="cuda", generator=g),
-        "head_pose_0": poses(), "head_pose_1": poses(), "gt_gaze": poses(), "gt_gaze_1": poses(),
+        "head_pose_0": poses(pairs), "head_pose_1": poses(pairs), "gt_gaze": poses(pairs),
+        "gt_gaze_1": poses(pairs),
     }
 
 
-def make_trainer(state, dtype, grad_accum=1):
-    """(model, train_step) from a saved state dict, R50 x 3 iterations."""
-    from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
-    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
-    from rot_mvgaze_tpu_torch.train import cyclic_triangular2, make_optimizer, make_train_step
+def family_views(flags) -> int:
+    return flags.get("num_views", 2)
 
-    model = FeatRotationSymm(backbone_depth=50, num_iter=3)
+
+def family_model(flags):
+    """R50 x 3 of a configuration: FeatRotationSymm with its model flags, or
+    FeatRotationMultiView for num_views > 2 (phase 10; {} is the default
+    model of phases 7-9)."""
+    from rot_mvgaze_tpu_torch.models import FeatRotationMultiView, FeatRotationSymm
+
+    cls = FeatRotationMultiView if family_views(flags) > 2 else FeatRotationSymm
+    return cls(backbone_depth=50, num_iter=3, **{k: v for k, v in flags.items() if k != "num_views"})
+
+
+def family_metrics(flags):
+    from rot_mvgaze_tpu_torch.losses import IterationLoss, MultiViewL1Loss, StereoL1Loss
+
+    loss = MultiViewL1Loss if family_views(flags) > 2 else StereoL1Loss
+    return IterationLoss(loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
+
+
+def make_trainer(state, dtype, grad_accum=1, flags=None):
+    """(model, train_step) from a saved state dict: R50 x 3 iterations of
+    the configuration ``flags`` (family_model)."""
+    from rot_mvgaze_tpu_torch.train import (
+        cyclic_triangular2,
+        make_multiview_train_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    flags = flags or {}
+    model = family_model(flags)
     model.load_state_dict(state, strict=True)
     model = model.to(device="cuda", memory_format=torch.channels_last)
-    metrics = IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
-    step = make_train_step(
-        model, metrics, make_optimizer(model.parameters()), image_size=224,
-        schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
-        compute_dtype=dtype, grad_accum=grad_accum,
-    )
-    return model, step
+    options = dict(image_size=224, schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
+                   compute_dtype=dtype)
+    if family_views(flags) > 2:
+        return model, make_multiview_train_step(model, family_metrics(flags),
+                                                make_optimizer(model.parameters()), **options)
+    return model, make_train_step(model, family_metrics(flags), make_optimizer(model.parameters()),
+                                  grad_accum=grad_accum, **options)
 
 
 def launch_counts(fusion, batchnorm) -> dict:
@@ -943,26 +1002,33 @@ def run_training(fusion, batchnorm, n_warm=2, n_timed=10) -> dict:
     }
 
 
-def reference_step_f64(state, batch, seed, grad_accum=1):
+def reference_step_f64(state, batch, seed, grad_accum=1, flags=None):
     """(loss, grads) of one step's forward and backward in float64 through
     the plain versions, on the step's own augmented views (micro-batch a of
     ``grad_accum`` takes rows a::grad_accum, gradients summed, then divided,
     as the train step does): the yardstick for how closely any float32 step
-    can reach the true gradient."""
-    from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
-    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    can reach the true gradient. ``flags``: the configuration (family_model)."""
+    from rot_mvgaze_tpu_torch.augment.ops import train_preprocess
+    from rot_mvgaze_tpu_torch.train.multiview_steps import prepare_multiview_rotations
     from rot_mvgaze_tpu_torch.train.steps import augment_views, prepare_rotations
 
+    flags = flags or {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = FeatRotationSymm(backbone_depth=50, num_iter=3)
+    model = family_model(flags)
     model.load_state_dict(state, strict=True)
     model = model.to(device="cuda", dtype=torch.float64, memory_format=torch.channels_last).train()
-    metrics = IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
+    metrics = family_metrics(flags)
     total = 0.0
     for a in range(grad_accum):
         mb = {k: v[a::grad_accum] for k, v in batch.items()}
-        data = {**augment_views(gen, mb, 224, torch.float32), **prepare_rotations(mb)}
-        data = {k: (v.double() if k.startswith("img") else v) for k, v in data.items()}
+        if family_views(flags) > 2:
+            imgs = mb["imgs"]
+            flat = train_preprocess(imgs.reshape((-1,) + tuple(imgs.shape[2:])), gen, 224, torch.float32)
+            data = {"imgs": flat.reshape(imgs.shape[:2] + flat.shape[1:]).double(),
+                    **prepare_multiview_rotations(mb)}
+        else:
+            data = {**augment_views(gen, mb, 224, torch.float32), **prepare_rotations(mb)}
+            data = {k: (v.double() if k.startswith("img") else v) for k, v in data.items()}
         with plain_kernels():
             loss = metrics(model(data))
             loss.backward()
@@ -977,6 +1043,28 @@ def check_training_paths(fusion, batchnorm) -> dict:
     with grad_accum 1 and 2 (the trainer phase's micro-batches of 32 pairs,
     whose BN calls have half the rows), and at 50 pairs with grad_accum 1
     (the command line phase's batch, whose row counts set other BN plans).
+    The bars are compare_paths'."""
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.manual_seed(1)
+    state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
+    out = {}
+    for (pairs, accum), dtype in itertools.product(((PAIRS, 1), (PAIRS, 2), (CLI_BATCH, 1)),
+                                                   (torch.float32, torch.bfloat16)):
+        name = (str(dtype)[6:] + ("" if accum == 1 else f"_accum{accum}")
+                + ("" if pairs == PAIRS else f"_b{pairs}"))
+        out.update(compare_paths(fusion, batchnorm, f"train step {name}", name, state,
+                                 training_batch(seed=31, pairs=pairs), dtype,
+                                 {k: accum * n for k, n in PER_STEP.items()}, grad_accum=accum))
+    return out
+
+
+def compare_paths(fusion, batchnorm, label, name, state, batch, dtype, per_step, grad_accum=1, flags=None,
+                  seed=32) -> dict:
+    """One update through the kernels and one through the plain versions,
+    each from ``state`` with a generator seeded ``seed``; the kernel update
+    launches ``per_step``, the plain one nothing. Returns the readings,
+    keyed ``name_*``.
 
     f32 bars: loss rtol 1e-4, and every gradient within atol 5e-3 / rtol
     5e-2 of the plain path's (the JAX bar for Pallas BN against XLA through
@@ -986,64 +1074,60 @@ def check_training_paths(fusion, batchnorm) -> dict:
     amplifies rounding: the stem convolution's f32 gradient, kernel or
     plain, lies about 2% (norm-relative) from the f64 one. There the kernel
     path must be no farther from f64 than the plain path (norm-relative
-    error at most 1.5x the plain path's)."""
+    error at most 1.5x the plain path's). bf16 bars: loss within 1% and
+    mean angular delta of pred_gaze <= 0.1 deg."""
     from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
-    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
 
-    torch.manual_seed(1)
-    state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
+    runs = []
+    for plain in (False, True):
+        model, step = make_trainer(state, dtype, grad_accum=grad_accum, flags=flags)
+        reset_counts(fusion, batchnorm)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            stats = step(batch, torch.Generator(device="cuda").manual_seed(seed), step=0)
+        counts = launch_counts(fusion, batchnorm)
+        if counts != ({k: 0 for k in PER_STEP} if plain else per_step):
+            raise RuntimeError(f"{'plain' if plain else 'kernel'} update ({name}) launched {counts}")
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        runs.append((float(stats["loss_gaze"]), stats["pred_gaze"].float().cpu().numpy(), grads))
+        del model, step
+        torch.cuda.empty_cache()
+    (lk, pk, gk), (lp, pp, gp) = runs
+    if set(gk) != set(gp):
+        raise RuntimeError(f"kernel and plain updates ({name}) reached different parameters")
     out = {}
-    for (pairs, accum), dtype in itertools.product(((PAIRS, 1), (PAIRS, 2), (CLI_BATCH, 1)),
-                                                   (torch.float32, torch.bfloat16)):
-        batch = training_batch(seed=31, pairs=pairs)
-        per_step = {k: accum * n for k, n in PER_STEP.items()}
-        name = (str(dtype)[6:] + ("" if accum == 1 else f"_accum{accum}")
-                + ("" if pairs == PAIRS else f"_b{pairs}"))
-        runs = []
-        for plain in (False, True):
-            model, step = make_trainer(state, dtype, grad_accum=accum)
-            reset_counts(fusion, batchnorm)
-            with plain_kernels() if plain else contextlib.nullcontext():
-                stats = step(batch, torch.Generator(device="cuda").manual_seed(32), step=0)
-            counts = launch_counts(fusion, batchnorm)
-            if counts != ({k: 0 for k in PER_STEP} if plain else per_step):
-                raise RuntimeError(f"{'plain' if plain else 'kernel'} step ({name}) launched {counts}")
-            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
-            runs.append((float(stats["loss_gaze"]), stats["pred_gaze"].float().cpu().numpy(), grads))
-            del model, step
-        (lk, pk, gk), (lp, pp, gp) = runs
-        if set(gk) != set(gp):
-            raise RuntimeError(f"kernel and plain steps ({name}) reached different parameters")
-        if dtype == torch.float32:
-            np.testing.assert_allclose(lk, lp, rtol=1e-4)
-            l64, g64 = reference_step_f64(state, batch, seed=32, grad_accum=accum)
-            worst, ill = 0.0, {}
-            for n in gk:
-                ref = g64[n]
-                if torch.allclose(gp[n].double(), ref, atol=5e-3, rtol=5e-2):
-                    worst = max(worst, (gk[n] - gp[n]).abs().max().item())
-                    torch.testing.assert_close(gk[n], gp[n], atol=5e-3, rtol=5e-2,
-                                               msg=lambda m: f"grad {n} ({name}): {m}")
-                    continue
-                ek = float((gk[n].double() - ref).norm() / ref.norm())
-                ep = float((gp[n].double() - ref).norm() / ref.norm())
-                ill[n] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
-                if not ek <= 1.5 * ep:
-                    raise RuntimeError(f"grad {n} ({name}): kernel path {ek:.3e} from f64, plain {ep:.3e}")
-            log(f"train step {name}, kernel vs plain: loss {lk:.8f} vs {lp:.8f} (f64 {l64:.8f}); "
-                f"{len(gk) - len(ill)} of {len(gk)} gradients within atol 5e-3 / rtol 5e-2, max "
-                f"|diff| {worst:.3e}; beyond f32's reach (plain f32 outside that bar of f64), "
-                f"norm-relative error against f64: {ill}")
-            out[f"{name}_max_grad_diff"], out[f"{name}_ill_conditioned"] = worst, ill
-        else:
-            rel = abs(lk - lp) / abs(lp)
-            delta = float(angular_error_numpy(pk, pp).mean())
-            log(f"train step {name}, kernel vs plain: loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, bar 1e-2); "
-                f"pred_gaze mean angular delta {delta:.4e} deg (bar 0.1)")
-            if not (rel <= 1e-2 and delta <= 0.1):
-                raise RuntimeError(f"{name} training kernel path deviates: loss rel {rel}, {delta} deg")
-            out[f"{name}_loss_rel"], out[f"{name}_delta_deg"] = rel, delta
-        out[f"{name}_loss_kernel"], out[f"{name}_loss_plain"] = lk, lp
+    if dtype == torch.float32:
+        np.testing.assert_allclose(lk, lp, rtol=1e-4)
+        l64, g64 = reference_step_f64(state, batch, seed=seed, grad_accum=grad_accum, flags=flags)
+        worst, ill = 0.0, {}
+        for n in gk:
+            ref = g64[n]
+            if torch.allclose(gp[n].double(), ref, atol=5e-3, rtol=5e-2):
+                worst = max(worst, (gk[n] - gp[n]).abs().max().item())
+                torch.testing.assert_close(gk[n], gp[n], atol=5e-3, rtol=5e-2,
+                                           msg=lambda m: f"grad {n} ({name}): {m}")
+                continue
+            ek = float((gk[n].double() - ref).norm() / ref.norm())
+            ep = float((gp[n].double() - ref).norm() / ref.norm())
+            ill[n] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
+            if not ek <= 1.5 * ep:
+                raise RuntimeError(f"grad {n} ({name}): kernel path {ek:.3e} from f64, plain {ep:.3e}")
+        del g64
+        log(f"{label}, kernel vs plain: loss {lk:.8f} vs {lp:.8f} (f64 {l64:.8f}); "
+            f"{len(gk) - len(ill)} of {len(gk)} gradients within atol 5e-3 / rtol 5e-2, max "
+            f"|diff| {worst:.3e}; beyond f32's reach (plain f32 outside that bar of f64), "
+            f"norm-relative error against f64: {ill}")
+        out[f"{name}_max_grad_diff"], out[f"{name}_ill_conditioned"] = worst, ill
+    else:
+        rel = abs(lk - lp) / abs(lp)
+        delta = float(angular_error_numpy(pk, pp).mean())
+        log(f"{label}, kernel vs plain: loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}, bar 1e-2); "
+            f"pred_gaze mean angular delta {delta:.4e} deg (bar 0.1)")
+        if not (rel <= 1e-2 and delta <= 0.1):
+            raise RuntimeError(f"{name} kernel path deviates: loss rel {rel}, {delta} deg")
+        out[f"{name}_loss_rel"], out[f"{name}_delta_deg"] = rel, delta
+    out[f"{name}_loss_kernel"], out[f"{name}_loss_plain"] = lk, lp
+    del gk, gp
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1346,9 +1430,11 @@ def check_steps(name, steps, per_step, n_steps) -> None:
         f"{[round(s['loss'], 5) for s in steps]}")
 
 
-def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
+def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s, keep_dir) -> dict:
     """Phase 8: the port's Trainer on the card through its own BatchLoader
-    and prefetch. Returns the main path's launch counts and the numbers."""
+    and prefetch. Returns the main path's launch counts, the numbers and a
+    copy of the epoch-1 checkpoint in ``keep_dir`` (phase 10 loads it: the
+    model after one epoch, before max_lr's second epoch throws it off)."""
     from rot_mvgaze_tpu_torch.compat import read_checkpoint
     from rot_mvgaze_tpu_torch.data import InMemoryGazeDataset
     from rot_mvgaze_tpu_torch.evaluate import EVAL_KEYS
@@ -1381,6 +1467,7 @@ def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
         if len(ckpts) != 2 or not math.isfinite(error):
             raise RuntimeError(f"trainer main path: error {error}, checkpoints {ckpts}")
         epoch_1, epoch_2 = (os.path.join(full.ckpt_dir, c) for c in ckpts)
+        kept = shutil.copy(epoch_1, os.path.join(keep_dir, "stereo_epoch_1.pth.tar"))
 
         # the checkpoint's state dict strictly in GazePredictor, float32,
         # against the Trainer's last evaluation
@@ -1472,7 +1559,7 @@ def run_trainer_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
     log(f"trainer phase: {imgs_per_s:.1f} images/s through train_one_epoch (bare step "
         f"{bare_imgs_per_s:.1f}), device idle {profile['device_idle_share']:.1%} over 3 steps, "
         f"peak {out['max_memory_allocated_mb']:.0f} MiB, {out['seconds']:.1f} s")
-    return {"launches": launches, "by_variant": by_variant, "numbers": out}
+    return {"launches": launches, "by_variant": by_variant, "numbers": out, "checkpoint": kept}
 
 
 # ---------------------------------------------------------------------------
@@ -1597,7 +1684,7 @@ def run_cli_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
 
         # refused options exit before any data is read: a data_path that does
         # not exist would raise FileNotFoundError, not SystemExit
-        for refused in (["--num_views", "3"], ["--remat", "true"]):
+        for refused in (["--num_views", "3", "--grad_accum", "2"], ["--remat", "true"]):
             argv = ["--exp_name", "xgaze2mpiinv_known", "--data_path", os.path.join(tmp, "absent.yaml"),
                     *refused]
             try:
@@ -1687,6 +1774,259 @@ def run_cli_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
         f"{bare_imgs_per_s:.1f}), {out['loader_wait_share']:.1%} of it between updates, peak "
         f"{out['max_memory_allocated_mb']:.0f} MiB, {out['seconds']:.1f} s")
     return {"launches": launches, "by_variant": by_variant, "numbers": out}
+
+
+# ---------------------------------------------------------------------------
+# the model family (phase 10)
+# ---------------------------------------------------------------------------
+
+# name -> (model flags, launches per BN kernel per update, fuser launches per update)
+FAMILY = {
+    "fuse_views": ({"fuse_views": True}, 53, 6),
+    "ignore_rotmat": ({"ignore_rotmat": True}, 106, 0),
+    "encode_rotmat": ({"encode_rotmat": True}, 106, 0),
+    "share_feature": ({"share_feature": True}, 106, 0),
+    "share_weights": ({"share_weights": True}, 106, 6),
+    "v3": ({"num_views": 3}, 53, 0),
+}
+FAMILY_TIMED = ("fuse_views", "v3")  # the fused-batch shapes: timed and checked against plain
+
+
+def family_per_step(name) -> dict:
+    _, n_bn, n_fuser = FAMILY[name]
+    return {**dict.fromkeys(BN_KERNELS, n_bn), "fusion": n_fuser, "conv3x3_bn_stats": 0}
+
+
+def run_family_updates(fusion, batchnorm, n_timed=5) -> dict:
+    """Phase 10a, the main path: one bf16 update of each configuration at 64
+    pairs or frames, counts set to 0 just before it and read just after;
+    then, for the fused-batch configurations, n_timed bare updates on the
+    host clock (a smoke reading)."""
+    totals = {k: 0 for k in PER_STEP}
+    by_variant = dict.fromkeys(fusion.VARIANTS, 0)
+    out = {"configs": {}}
+    for name, (flags, n_bn, _) in FAMILY.items():
+        torch.manual_seed(0)
+        model, step = make_trainer(family_model(flags).state_dict(), torch.bfloat16, flags=flags)
+        batch = training_batch(seed=51, views=family_views(flags))
+        gen = torch.Generator(device="cuda").manual_seed(52)
+        shapes = []
+        hooks = record_bn_shapes(model, shapes)
+        step(batch, gen, step=0)  # the first update builds cuDNN's plans; it records the BN shapes
+        for h in hooks:
+            h.remove()
+        torch.cuda.synchronize()
+        reset_counts(fusion, batchnorm)
+        loss = float(step(batch, gen, step=1)["loss_gaze"])
+        counts = launch_counts(fusion, batchnorm)
+        variants = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+        want = family_per_step(name)
+        if counts != want or variants["wgmma"] != want["fusion"] or not math.isfinite(loss):
+            raise RuntimeError(f"model family {name}: launches {counts} {variants}, loss {loss}; "
+                               f"expected {want}, all wgmma")
+        if len(shapes) != n_bn:
+            raise RuntimeError(f"model family {name}: {len(shapes)} BN calls per update, expected {n_bn}")
+        for k, n in counts.items():
+            totals[k] += n
+        for k, n in variants.items():
+            by_variant[k] += n
+        rec = {"loss": loss, "launches": counts, "bn_shapes": shapes}
+        if name in FAMILY_TIMED:
+            images = PAIRS * family_views(flags)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n_timed):
+                step(batch, gen, step=2 + i)
+            torch.cuda.synchronize()
+            rec["imgs_per_s"] = images * n_timed / (time.perf_counter() - t0)
+        out["configs"][name] = rec
+        log(f"model family {name}: one update launched {counts} ({variants['wgmma']} wgmma), loss "
+            f"{loss:.5f}" + (f"; {rec['imgs_per_s']:.1f} images/s over {n_timed} bare updates"
+                             if "imgs_per_s" in rec else ""))
+        del model, step, batch
+        torch.cuda.empty_cache()
+    out["launches"], out["fusion_by_variant"] = totals, by_variant
+    return out
+
+
+def check_family_paths(fusion, batchnorm) -> dict:
+    """Phase 10b: for fuse_views and V=3, one update through the kernels and
+    one through the plain versions from one saved state, at phase 7b's bars
+    (compare_paths; f32 against an f64 update too)."""
+    out = {}
+    for name in FAMILY_TIMED:
+        flags = FAMILY[name][0]
+        torch.manual_seed(1)
+        state = family_model(flags).state_dict()
+        batch = training_batch(seed=61, views=family_views(flags))
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}_{str(dtype)[6:]}"
+            out.update(compare_paths(fusion, batchnorm, f"model family {tag}", tag, state, batch, dtype,
+                                     family_per_step(name), flags=flags, seed=62))
+    return out
+
+
+def family_bn_cases(updates) -> list:
+    """Every distinct BN shape of the fused-batch updates, as BN_CASES
+    entries (name, rows, C, relu, residual)."""
+    cases = {}
+    for name in FAMILY_TIMED:
+        for (n, c, h, w), relu, res in updates["configs"][name]["bn_shapes"]:
+            cases.setdefault((n * h * w, c, relu, res), name)
+    return [(f"{name} update", rows, c, relu, res) for (rows, c, relu, res), name in cases.items()]
+
+
+def time_family_bn(batchnorm, updates, default_bn) -> dict:
+    """Phase 10e: each BN kernel over the 53 calls of one fused-batch update
+    (device_ms), its byte bound and the bound's share, beside the default
+    update's 106 calls at 64 pairs from phase 7c: the same 128 images per
+    view pair in one call instead of two."""
+    out = {}
+    for name in FAMILY_TIMED:
+        calls = bn_calls(batchnorm, updates["configs"][name]["bn_shapes"])
+        rec = {}
+        for kind in BN_KERNELS:
+            ms = device_ms(bn_runner(batchnorm, calls, kind))
+            nbytes = sum(bn_bytes(kind, q["rows"], q["c"], 2, q["relu"], q["res"]) for q in calls)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rec[kind] = {"ms": ms, "bound_ms": bound, "share_of_bound": bound / ms, "calls": len(calls)}
+        out[name] = rec
+        del calls
+        torch.cuda.empty_cache()
+        log(f"BN kernels over one {name} update's 53 calls (device ms, share of the byte bound): "
+            + "; ".join(f"{k} {r['ms']:.4f} ({r['share_of_bound']:.1%})" for k, r in rec.items())
+            + "; the default update's 106 calls: "
+            + "; ".join(f"{k} {default_bn[k]['ms']:.4f}" for k in BN_KERNELS))
+    return out
+
+
+def run_family_trainer(fusion, batchnorm, stereo_ckpt) -> dict:
+    """Phase 10d: the V-view Trainer at V=3 (R50 x 3, bf16, 64 frames per
+    update) from phase 8's epoch-1 stereo checkpoint (a strict load, weights
+    only),
+    one epoch over an in-memory corpus of 216 samples (3 updates) with
+    evaluation before and after (72 samples, batches of 64 and 8): 53
+    launches of each BN kernel per update, none of the fuser, none in
+    evaluation; finite predictions. Then, from the same checkpoint, the
+    V-view model's eval predictions at V=2 against the stereo model's,
+    angles in float64: both models in float64 (plain versions) within 1e-3
+    deg, the reduction itself; in float32, against the stereo model with
+    its fuser kernel, within 1e-3 deg as well, and pred_gaze within phase
+    4's f32 bar (atol 2e-4 / rtol 1e-3). In float32 the two models run
+    their GEMMs at other shapes (the V-view fuser and heads take all B·V
+    rows in one call, the stereo ones B rows per view), so their rounding
+    differs; the angles are logged, with both models' errors on the batch."""
+    from types import SimpleNamespace
+
+    from rot_mvgaze_tpu_torch.compat import read_checkpoint
+    from rot_mvgaze_tpu_torch.compat.convert import checkpoint_state_dict
+    from rot_mvgaze_tpu_torch.data import BatchLoader, InMemoryMultiViewGazeDataset, collate
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.models import FeatRotationMultiView, FeatRotationSymm
+    from rot_mvgaze_tpu_torch.train import Trainer, make_eval_step, make_multiview_eval_step
+
+    flags = FAMILY["v3"][0]
+    train_ds = InMemoryMultiViewGazeDataset(2, n_views=3, n_frames=6, image_size=224, seed=0, learnable=True)
+    test_ds = InMemoryMultiViewGazeDataset(1, n_views=3, n_frames=4, image_size=224, seed=100, learnable=True)
+    per_step = family_per_step("v3")
+    no_launch = dict.fromkeys(PER_STEP, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = SimpleNamespace(output_dir=tmp, epochs=1, save_epoch=1, print_freq=1, seed=0, image_size=224,
+                              bf16=True, scheduler_step="epoch", base_lr=1e-6, max_lr=1e-3, num_views=3,
+                              ckpt_resume=stereo_ckpt, weights_only=True)
+        torch.manual_seed(0)
+        trainer = Trainer(cfg, family_model(flags), family_metrics(flags),
+                          BatchLoader(train_ds, PAIRS, shuffle=True, drop_last=True), BatchLoader(test_ds, PAIRS),
+                          device="cuda")
+        steps = record_steps(trainer, fusion, batchnorm)
+        reset_counts(fusion, batchnorm)
+        before = trainer.test(-1)
+        first_pred = trainer.last_eval["pred"]
+        eval_counts = launch_counts(fusion, batchnorm)
+        error = trainer.train()
+        launches = launch_counts(fusion, batchnorm)
+    check_steps("V=3", steps, per_step, 3)
+    want = {k: 3 * n for k, n in per_step.items()}
+    if eval_counts != no_launch or launches != want:
+        raise RuntimeError(f"V=3 trainer launched {launches} (evaluation {eval_counts}), expected {want}")
+    if not (np.all(np.isfinite(first_pred)) and math.isfinite(before) and math.isfinite(error)):
+        raise RuntimeError(f"V=3 trainer: errors {before}, {error}")
+    log(f"V=3 Trainer from the stereo checkpoint (strict): error {before:.4f} deg before, {error:.4f} after "
+        f"one epoch of 3 updates; launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # V=2: the V-view model against the stereo one, float32, one batch of 64
+    state = checkpoint_state_dict(read_checkpoint(stereo_ckpt))
+    stereo, multi = FeatRotationSymm(backbone_depth=50, num_iter=3), FeatRotationMultiView(backbone_depth=50, num_iter=3)
+    for m in (stereo, multi):
+        m.load_state_dict(state, strict=True)
+    ds = InMemoryMultiViewGazeDataset(1, n_views=2, n_frames=4, image_size=224, seed=100, learnable=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in collate([ds[i] for i in range(PAIRS)]).items()}
+    pair = {"img_0": batch["imgs"][:, 0], "img_1": batch["imgs"][:, 1],
+            "head_pose_0": batch["head_poses"][:, 0], "head_pose_1": batch["head_poses"][:, 1]}
+    def predictions(dtype, plain):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            st = make_eval_step(stereo.to(device="cuda", dtype=dtype), 224)(pair)["pred_gaze"]
+            mv = make_multiview_eval_step(multi.to(device="cuda", dtype=dtype), 224)(batch)["pred_gaze"]
+        return mv.cpu().numpy().astype(np.float64), st.cpu().numpy().astype(np.float64)
+
+    got, kernel_pred = predictions(torch.float32, plain=False)
+    _, plain_pred = predictions(torch.float32, plain=True)
+    got64, want64 = predictions(torch.float64, plain=True)
+    f32_delta = angular_error_numpy(got, kernel_pred)
+    v2_delta = float(angular_error_numpy(got64, want64).max())
+    gt = batch["gt_gazes"][:, 0].cpu().numpy().astype(np.float64)
+    errors = {"multiview": float(angular_error_numpy(got, gt).mean()),
+              "stereo": float(angular_error_numpy(kernel_pred, gt).mean())}
+    log(f"V=2, the V-view model against the stereo model over {PAIRS} samples (angles in float64; "
+        f"errors on the batch {errors['multiview']:.4f} and {errors['stereo']:.4f} deg): in float64 max "
+        f"{v2_delta:.3e} deg (bar 1e-3); in float32 with the stereo fuser's kernel max "
+        f"{f32_delta.max():.3e} (bar 1e-3), mean {f32_delta.mean():.3e} deg, pred_gaze max |diff| "
+        f"{np.abs(got - kernel_pred).max():.3e} (phase 4's f32 bar atol 2e-4 / rtol 1e-3); with its plain "
+        f"products max {angular_error_numpy(got, plain_pred).max():.3e} deg")
+    if not (v2_delta <= 1e-3 and f32_delta.max() <= 1e-3):
+        raise RuntimeError(f"V=2 V-view model is {v2_delta} deg (float64), {f32_delta.max()} deg (float32) "
+                           f"from the stereo model")
+    np.testing.assert_allclose(got, kernel_pred, atol=2e-4, rtol=1e-3)
+    del stereo, multi
+    torch.cuda.empty_cache()
+    return {"launches": launches, "error_before_deg": before, "error_deg": error,
+            "v2_max_delta_deg_f64": v2_delta, "v2_max_delta_deg_f32": float(f32_delta.max()),
+            "v2_mean_delta_deg_f32": float(f32_delta.mean()), "v2_batch_error_deg": errors,
+            "v2_max_pred_diff_f32": float(np.abs(got - kernel_pred).max()), "losses": [s["loss"] for s in steps]}
+
+
+def run_family_phase(fusion, batchnorm, default_bn, stereo_ckpt) -> dict:
+    """Phase 10: the model family at R50 x 3. Returns the main path's launch
+    counts and the numbers."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    updates = run_family_updates(fusion, batchnorm)
+    peak_updates = torch.cuda.max_memory_allocated() / 2**20
+    paths = check_family_paths(fusion, batchnorm)
+    cases = family_bn_cases(updates)
+    bn_err = check_bn_kernels(batchnorm, cases)
+    torch.cuda.empty_cache()
+    bn_time = time_family_bn(batchnorm, updates, default_bn)
+    trainer = run_family_trainer(fusion, batchnorm, stereo_ckpt)
+    out = {
+        "losses": {n: c["loss"] for n, c in updates["configs"].items()},
+        "launches_per_update": {n: c["launches"] for n, c in updates["configs"].items()},
+        "imgs_per_s_bare_update": {n: updates["configs"][n]["imgs_per_s"] for n in FAMILY_TIMED},
+        "kernel_vs_plain": paths, "bn_cases_vs_f64": len(cases), "bn_max_abs_err_bf16": bn_err,
+        "bn_ms_per_update": bn_time,
+        "bn_ms_default_update": {k: default_bn[k]["ms"] for k in BN_KERNELS},
+        "v3_trainer": trainer,
+        "max_memory_allocated_mb_updates": peak_updates,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    launches = {k: updates["launches"][k] + trainer["launches"][k] for k in PER_STEP}
+    log(f"model family phase: {len(cases)} fused-batch BN shapes held to float64; images/s "
+        f"{out['imgs_per_s_bare_update']}; peak {out['max_memory_allocated_mb']:.0f} MiB "
+        f"(updates {peak_updates:.0f}); {out['seconds']:.1f} s")
+    return {"launches": launches, "by_variant": updates["fusion_by_variant"], "numbers": out}
 
 
 # ---------------------------------------------------------------------------
@@ -1846,15 +2186,20 @@ def main(argv=None) -> int:
     bn_timing = time_bn(batchnorm, trained["bn_shapes"])
     log(f"training phases took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    trainer = run_trainer_phase(fusion, batchnorm, trained["imgs_per_s"])
+    keep = tempfile.TemporaryDirectory()
+    trainer = run_trainer_phase(fusion, batchnorm, trained["imgs_per_s"], keep.name)
     torch.cuda.empty_cache()
     cli = run_cli_phase(fusion, batchnorm, trained["imgs_per_s"])
+    torch.cuda.empty_cache()
+    family = run_family_phase(fusion, batchnorm, bn_timing, trainer["checkpoint"])
+    keep.cleanup()
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
     print(json.dumps({"training_kernel_vs_plain": paths, **tag}), flush=True)
     print(json.dumps({"trainer": trainer["numbers"], **tag}), flush=True)
     print(json.dumps({"cli": cli["numbers"], **tag}), flush=True)
+    print(json.dumps({"model_family": family["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -1879,6 +2224,15 @@ def main(argv=None) -> int:
          "share of that span between updates (loader wait and batch staging)"),
         ("cli_max_memory_allocated_mb", cli["numbers"]["max_memory_allocated_mb"], "MiB"),
         ("cli_phase_seconds", cli["numbers"]["seconds"], "s (corpus, train, test, export)"),
+        ("family_fuse_views_imgs_per_s", family["numbers"]["imgs_per_s_bare_update"]["fuse_views"],
+         "images/s over 5 bare fuse_views updates of 64 pairs, bf16 (host clock; a smoke reading)"),
+        ("family_v3_imgs_per_s", family["numbers"]["imgs_per_s_bare_update"]["v3"],
+         "images/s over 5 bare V=3 updates of 64 frames, bf16 (host clock; a smoke reading)"),
+        ("family_max_memory_allocated_mb", family["numbers"]["max_memory_allocated_mb"], "MiB"),
+        ("family_phase_seconds", family["numbers"]["seconds"], "s"),
+    ] + [
+        (f"{kind}_ms_per_{name}_update", rec["ms"], "ms over the update's 53 calls")
+        for name, t in family["numbers"]["bn_ms_per_update"].items() for kind, rec in t.items()
     ] + [
         (f"{kind}_{key}_per_step", t[key], "ms over the step's 106 calls")
         for kind, t in bn_timing.items()
@@ -1889,11 +2243,12 @@ def main(argv=None) -> int:
     kernels = [{
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
-                    + cli["launches"]["fusion"],
+                    + cli["launches"]["fusion"] + family["launches"]["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
-                             "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"]},
+                             "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
+                             "model_family": family["launches"]["fusion"]},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
-                                + trainer["by_variant"][k] + cli["by_variant"][k]
+                                + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
                                 for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
@@ -1906,10 +2261,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": BN_SOURCE,
         "replaces": replaces,
-        "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind],
+        "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind]
+                    + family["launches"][kind],
         "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
-                             "cli": cli["launches"][kind]},
-        "max_abs_err": bn_err[kind],
+                             "cli": cli["launches"][kind], "model_family": family["launches"][kind]},
+        "max_abs_err": max(bn_err[kind], family["numbers"]["bn_max_abs_err_bf16"][kind]),
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],
         "bound_ms": bn_timing[kind]["bound_ms"],

@@ -14,8 +14,13 @@ come from the packed caches (``data/packed.py``) through the C++ loader
 (``data/native.py``), and the pair index is drawn from the packs' row
 counts, so a corpus packed elsewhere trains with no ``h5py``.
 
-Options the port does not have yet are refused before any data is read,
-each naming its ``ROADMAP.md`` item; ``--use_pallas_fusion`` and
+Every model of the JAX command line is built: the stereo model with its
+ablations (``--encode_rotmat``, ``--share_feature``, ``--ignore_rotmat``,
+``--share_weights``) and ``--fuse_views``, and with ``--num_views > 2`` the
+V-view model, its loss, dataset (HDF5 only, as in JAX) and steps. The
+combinations the JAX command line refuses are refused, before any data is
+read. Options the port does not have yet are refused there too, each
+naming its ``ROADMAP.md`` item; ``--use_pallas_fusion`` and
 ``--use_pallas_bn true|false`` parse, so JAX command lines run, and change
 nothing: on the card the port always runs its kernels.
 """
@@ -91,7 +96,8 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
                         "wide_resnet50_2, wide_resnet101_2)")
     p.add_argument("--num_iter", type=int, default=3)
     p.add_argument("--num_views", type=int, default=2,
-                   help="views per sample; only 2, the reference's stereo protocol, is ported")
+                   help="views per sample: 2 is the reference's stereo protocol; >2 trains the "
+                        "V-view model (HDF5 loader)")
     p.add_argument("--share_weights", type=str2bool, default=False)
     p.add_argument("--encode_rotmat", type=str2bool, default=False)
     p.add_argument("--share_feature", type=str2bool, default=False)
@@ -118,7 +124,9 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
     p.add_argument("--remat", type=str2bool, default=False, help="not ported: only false")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="micro-batches per update (batch_size is the update's batch)")
-    p.add_argument("--fuse_views", type=str2bool, default=False, help="not ported: only false")
+    p.add_argument("--fuse_views", type=str2bool, default=False,
+                   help="both views through the backbone as one batch in training too (merges "
+                        "the views' BatchNorm statistics)")
     p.add_argument("--weights_only", type=str2bool, default=False,
                    help="load only the weights (the moving average when there is one) from "
                         "--ckpt_resume, with a fresh optimizer")
@@ -149,11 +157,6 @@ def unported_options(config: Any) -> list:
     """The options ``config`` sets that the port does not have, each with
     the ``ROADMAP.md`` item that holds it."""
     refused = [
-        ("--num_views > 2 (ROADMAP A11)", config.num_views > 2),
-        ("--encode_rotmat (ROADMAP A5)", config.encode_rotmat),
-        ("--share_feature (ROADMAP A5)", config.share_feature),
-        ("--ignore_rotmat (ROADMAP A5)", config.ignore_rotmat),
-        ("--fuse_views (ROADMAP A16)", config.fuse_views),
         ("--bn_stat_subsample > 1 (ROADMAP A17)", config.bn_stat_subsample > 1),
         ("--remat (ROADMAP A18)", config.remat),
         ("--spatial_partition > 1 (ROADMAP A13)", config.spatial_partition > 1),
@@ -184,6 +187,7 @@ def configure_dataset(
     seed: int = 0,
     pairing: str = "reference",
     packed: bool = False,
+    n_views: int = 2,
 ) -> Tuple[Any, Any]:
     """``exp_name`` -> ``(train_dataset, test_dataset)``, the JAX command
     line's mapping: ``known`` trains and tests on every camera, ``novel`` on
@@ -194,7 +198,9 @@ def configure_dataset(
     ``packed``: ``PackedGazeDataset``s (the pair index from the packs' row
     counts, which equal the archives', so the index is the HDF5 datasets'
     bit for bit, and no archive is opened where its pack is current);
-    otherwise ``GazeDataset``s over the HDF5 archives."""
+    otherwise ``GazeDataset``s over the HDF5 archives. ``n_views > 2``:
+    ``MultiViewGazeDataset``s over the archives (the V-view index is its
+    own seeded draw; ``pairing`` and ``packed`` do not apply)."""
     parts = exp_name.split("_")
     if len(parts) != 2:
         raise NotImplementedError(exp_name)
@@ -207,6 +213,14 @@ def configure_dataset(
         raise NotImplementedError(exp_name)
     if dataset_setting not in DATASET_SPECS:
         raise NotImplementedError(exp_name)
+    if n_views > 2:
+        from rot_mvgaze_tpu_torch.data.multiview import MultiViewGazeDataset
+
+        return tuple(
+            MultiViewGazeDataset(name, data_paths[name], color, _load_subjects(name),
+                                 n_views=n_views, camera_tag=cams, seed=seed)
+            for (name, color), cams in zip(DATASET_SPECS[dataset_setting], (cam_train, cam_test))
+        )
     if packed:
         from rot_mvgaze_tpu_torch.data.native import PackedGazeDataset as Dataset
     else:
@@ -228,12 +242,15 @@ def build_loaders(config: Any) -> Tuple[Any, Any]:
     packs through ``NativeBatchLoader`` over the C++ pool; without ``g++``,
     or if the packs cannot be used, the HDF5 archives through
     ``BatchLoader``, as the JAX command line falls back. Which path serves
-    is printed."""
+    is printed. V-view batches (``--num_views > 2``) come from the HDF5
+    archives, as in the JAX command line: the packs hold stereo pairs."""
     from rot_mvgaze_tpu_torch.data.native import NativeBatchLoader, NativePool
     from rot_mvgaze_tpu_torch.data.pipeline import BatchLoader
 
     data_paths = _load_data_paths(config.data_path)
-    if config.native_loader and not NativePool.available():
+    if config.num_views > 2 and config.native_loader:
+        print("V-view mode: using the h5py loader (packed cache is stereo)", flush=True)
+    elif config.native_loader and not NativePool.available():
         print("native loader unavailable (no g++?); using the h5py loader", flush=True)
     elif config.native_loader:
         try:
@@ -248,11 +265,43 @@ def build_loaders(config: Any) -> Tuple[Any, Any]:
         except (OSError, ValueError, ImportError) as e:
             print(f"native loader unavailable ({e!r}); using the h5py loader", flush=True)
     train_ds, test_ds = configure_dataset(config.exp_name, data_paths, seed=config.seed,
-                                          pairing=config.pairing)
+                                          pairing=config.pairing, n_views=config.num_views)
     return (BatchLoader(train_ds, batch_size=config.batch_size, shuffle=True, seed=config.seed,
                         drop_last=True, num_threads=config.num_workers),
             BatchLoader(test_ds, batch_size=config.test_batch_size, shuffle=False,
                         num_threads=config.num_workers))
+
+
+def refused_combinations(config: Any) -> Optional[str]:
+    """The JAX command line's refusal of ``config``'s flags, or None: the
+    stereo-only options at ``--num_views > 2``, and the model's
+    unconstructible combinations at 2."""
+    nv = config.num_views
+    if nv > 2:
+        unsupported = [
+            ("--grad_accum > 1", config.grad_accum > 1),
+            ("--spatial_partition > 1", config.spatial_partition > 1),
+            ("--encode_rotmat", config.encode_rotmat),
+            ("--share_feature", config.share_feature),
+            ("--use_pallas_fusion", config.use_pallas_fusion),
+            ("--use_pallas_bn", bool(config.use_pallas_bn)),
+            ("--bn_stat_subsample > 1", config.bn_stat_subsample > 1),
+            ("--fuse_views", config.fuse_views),
+            # the V-view index is its own seeded draw: no reference pairing to replay
+            ("--pairing rng", config.pairing != "reference"),
+        ]
+        bad = [flag for flag, on in unsupported if on]
+        return f"--num_views {nv} does not support: {', '.join(bad)}" if bad else None
+    if config.ignore_rotmat and config.encode_rotmat:
+        return "--ignore_rotmat cannot be combined with --encode_rotmat"
+    if config.share_feature and (config.encode_rotmat or config.share_weights):
+        return ("--share_feature cannot be combined with --encode_rotmat or --share_weights (these "
+                "combinations crash in the reference model and have no trained counterpart)")
+    if config.use_pallas_fusion and (config.ignore_rotmat or config.encode_rotmat
+                                     or config.share_feature):
+        return ("--use_pallas_fusion covers only the default fuser path; with --ignore_rotmat, "
+                "--encode_rotmat or --share_feature the JAX command line refuses it")
+    return None
 
 
 def check_config(config: Any) -> None:
@@ -263,6 +312,9 @@ def check_config(config: Any) -> None:
     bad = unported_options(config)
     if bad:
         raise SystemExit(f"not ported yet: {', '.join(bad)}")
+    refused = refused_combinations(config)
+    if refused:
+        raise SystemExit(refused)
     if config.freeze_bn:
         inert = [("--use_pallas_bn", bool(config.use_pallas_bn)),
                  ("--bn_stat_subsample > 1", config.bn_stat_subsample > 1),
@@ -289,8 +341,8 @@ def build_experiment(config: Any):
     ``build_experiment``, on one device)."""
     import torch
 
-    from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
-    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    from rot_mvgaze_tpu_torch.losses import IterationLoss, MultiViewL1Loss, StereoL1Loss
+    from rot_mvgaze_tpu_torch.models import FeatRotationMultiView, FeatRotationSymm
     from rot_mvgaze_tpu_torch.train import Trainer
     from rot_mvgaze_tpu_torch.utils.device import resolve_device
     from rot_mvgaze_tpu_torch.utils.seed import set_seed
@@ -308,14 +360,22 @@ def build_experiment(config: Any):
         config.batch_size = rounded
     set_seed(config.seed, "cpu")
     train_loader, test_loader = build_loaders(config)
-    model = FeatRotationSymm(
-        backbone_depth=config.backbone_depth, num_iter=config.num_iter,
-        share_weights=config.share_weights,
-    )
-    metrics = IterationLoss(
-        loss=StereoL1Loss(rel_weight=0.01, reference_decay=1.0, distance_metric="angular_error"),
-        iter_decay=0.5,
-    )
+    if config.num_views > 2:
+        model = FeatRotationMultiView(
+            backbone_depth=config.backbone_depth, num_iter=config.num_iter,
+            share_weights=config.share_weights, ignore_rotmat=config.ignore_rotmat,
+        )
+        # view 0 weighted 1.0, every partner view reference_decay: StereoL1Loss at V=2
+        loss = MultiViewL1Loss(rel_weight=0.01, reference_decay=1.0)
+    else:
+        model = FeatRotationSymm(
+            backbone_depth=config.backbone_depth, num_iter=config.num_iter,
+            share_weights=config.share_weights, encode_rotmat=config.encode_rotmat,
+            share_feature=config.share_feature, ignore_rotmat=config.ignore_rotmat,
+            fuse_views=config.fuse_views,
+        )
+        loss = StereoL1Loss(rel_weight=0.01, reference_decay=1.0, distance_metric="angular_error")
+    metrics = IterationLoss(loss=loss, iter_decay=0.5)
     return Trainer(config, model, metrics, train_loader, test_loader, device=device)
 
 

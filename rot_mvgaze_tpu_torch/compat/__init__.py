@@ -2,6 +2,7 @@ from rot_mvgaze_tpu_torch.compat.convert import (
     checkpoint_state_dict,
     is_jax_tree,
     load_checkpoint,
+    model_config,
     read_checkpoint,
     state_dict_from_jax,
     state_from_jax,
@@ -13,6 +14,7 @@ __all__ = [
     "is_jax_tree",
     "load_checkpoint",
     "load_pretrained_backbone",
+    "model_config",
     "read_checkpoint",
     "state_dict_from_jax",
     "state_from_jax",

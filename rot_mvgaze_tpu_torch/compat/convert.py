@@ -10,8 +10,15 @@ JAX package's variables, as a tree of numpy arrays, into the same state dict:
 - Conv ``kernel (kH, kW, I, O)``     -> Conv2d ``weight (O, I, kH, kW)``
 - BN ``scale/bias`` (params), ``mean/var`` (batch_stats)
                                      -> ``weight/bias/running_mean/running_var``
+- ``IntensityBatchNorm`` ``running_mean`` (batch_stats)
+                                     -> ``_img_fusers.{i}._batchnorm.running_mean``
 - plus ``num_batches_tracked`` (zero) per BN and the never-called backbone
   ``fc`` (zeros), which a strict load requires.
+
+The key map covers every ``FeatRotationSymm`` configuration (the 3-layer
+fusers of ``encode_rotmat`` and ``share_feature``, ``share_weights``'
+aliases), ``FeatRotationMultiView`` (the stereo tree) and, with
+``single_view=True``, ``SingleViewGazeNet``.
 
 :func:`read_checkpoint` reads a ``torch.save`` file or the JAX package's
 ``.msgpack`` (through :mod:`rot_mvgaze_tpu_torch.compat.msgpack`, without
@@ -63,7 +70,7 @@ class Entry:
 
     torch_key: str  # without the .weight/.bias/... suffix
     jax_path: Tuple[str, ...]  # path under the collection root
-    kind: str  # 'conv' | 'bn' | 'linear'
+    kind: str  # 'conv' | 'bn' | 'linear' | 'intensity_bn'
 
 
 def _resnet_entries(depth: Any, torch_prefix: str, jax_prefix: Tuple[str, ...]) -> List[Entry]:
@@ -99,16 +106,33 @@ def _mlp_entries(torch_prefix: str, jax_prefix: Tuple[str, ...], n_layers: int) 
 
 
 def rot_mv_entries(
-    backbone_depth: Any = 50, num_iter: int = 3, share_weights: bool = False
+    backbone_depth: Any = 50,
+    num_iter: int = 3,
+    share_weights: bool = False,
+    encode_rotmat: bool = False,
+    share_feature: bool = False,
+    ignore_rotmat: bool = False,
+    single_view: bool = False,
 ) -> List[Entry]:
-    """Key map of ``FeatRotationSymm`` on the default path. With
+    """Key map of ``FeatRotationSymm`` of the given configuration (and of
+    ``FeatRotationMultiView``, whose tree is the stereo one):
+    ``encode_rotmat`` and ``share_feature`` have 3-layer fusers,
+    ``share_feature`` an ``IntensityBatchNorm`` per fuser. With
     ``share_weights`` every iteration index maps to the JAX index-0 module,
-    as the reference's aliased ``ModuleList`` emits every index."""
+    as the reference's aliased ``ModuleList`` emits every index.
+    ``ignore_rotmat`` changes no key. ``single_view``: the key map of
+    ``SingleViewGazeNet`` (backbone and a 2-layer ``gaze_estimator``)."""
     entries = _resnet_entries(backbone_depth, "_feat_extractor.0.", ("backbone",))
+    if single_view:
+        return entries + _mlp_entries("_gaze_estimator.", ("gaze_estimator",), 2)
     entries += _mlp_entries("_lifter._lifter.", ("lifter", "lifter"), 2)
+    fuser_layers = 3 if (encode_rotmat or share_feature) else 2
     for i in range(num_iter):
         j = 0 if share_weights else i
-        entries += _mlp_entries(f"_img_fusers.{i}._fuser.", (f"img_fuser_{j}", "fuser"), 2)
+        entries += _mlp_entries(f"_img_fusers.{i}._fuser.", (f"img_fuser_{j}", "fuser"), fuser_layers)
+        if share_feature:
+            entries.append(Entry(f"_img_fusers.{i}._batchnorm", (f"img_fuser_{j}", "batchnorm"),
+                                 "intensity_bn"))
         entries += _mlp_entries(f"_gaze_estimators.{i}.", (f"gaze_estimator_{j}",), 2)
     return entries
 
@@ -123,18 +147,18 @@ def _lookup(tree: Mapping[str, Any], path: Sequence[str]) -> np.ndarray:
 
 
 def state_dict_from_jax(
-    variables: Mapping[str, Any],
-    backbone_depth: Any = 50,
-    num_iter: int = 3,
-    share_weights: bool = False,
+    variables: Mapping[str, Any], backbone_depth: Any = 50, **config: Any
 ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params", "batch_stats"}`` tree of numpy arrays
-    -> the port's ``FeatRotationSymm`` state dict (strict-loadable)."""
+    -> the port's state dict (strict-loadable) of the model ``config``
+    describes (:func:`rot_mv_entries`' flags)."""
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
     out: Dict[str, np.ndarray] = {}
-    for e in rot_mv_entries(backbone_depth, num_iter, share_weights):
-        if e.kind == "conv":
+    for e in rot_mv_entries(backbone_depth, **config):
+        if e.kind == "intensity_bn":
+            out[f"{e.torch_key}.running_mean"] = _lookup(batch_stats, e.jax_path + ("running_mean",))
+        elif e.kind == "conv":
             out[f"{e.torch_key}.weight"] = _lookup(params, e.jax_path + ("kernel",)).transpose(3, 2, 0, 1)
         elif e.kind == "linear":
             out[f"{e.torch_key}.weight"] = _lookup(params, e.jax_path + ("kernel",)).T
@@ -176,6 +200,17 @@ def is_jax_tree(ckpt: Any) -> bool:
     return isinstance(ckpt, dict) and "params" in ckpt and isinstance(ckpt["params"], dict)
 
 
+#: the model attributes that select a key map (rot_mv_entries' flags)
+MODEL_FLAGS = ("backbone_depth", "num_iter", "share_weights", "encode_rotmat", "share_feature",
+               "ignore_rotmat")
+
+
+def model_config(model: Any) -> Dict[str, Any]:
+    """The key-map flags of a port model (``FeatRotationSymm``,
+    ``FeatRotationMultiView``), from its attributes."""
+    return {k: getattr(model, k) for k in MODEL_FLAGS if hasattr(model, k)}
+
+
 def _parameters(converted: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The parameters of a converted state dict (no BN buffers)."""
     buffers = ("running_mean", "running_var", "num_batches_tracked")
@@ -185,9 +220,7 @@ def _parameters(converted: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor
 def state_from_jax(
     tree: Mapping[str, Any],
     param_names: Optional[Sequence[str]] = None,
-    backbone_depth: Any = 50,
-    num_iter: int = 3,
-    share_weights: bool = False,
+    **config: Any,
 ) -> Dict[str, Any]:
     """A parsed JAX checkpoint (``variables_from_tree``'s input: ``params``,
     ``batch_stats``, and in a full ``TrainState`` ``opt_state``, ``step``,
@@ -206,19 +239,20 @@ def state_from_jax(
       Adam gives none to a parameter without a gradient. ``step`` and
       ``epoch_meta`` (when saved) as they are.
 
-    A tree with ``params`` and no ``batch_stats`` is refused: pairing
+    ``config`` holds :func:`rot_mv_entries`' flags (``backbone_depth``,
+    ``num_iter``, ``share_weights``, the ablations), as :func:`model_config`
+    reads them. A tree with ``params`` and no ``batch_stats`` is refused: pairing
     trained weights with initial BN statistics would evaluate garbage."""
     if "params" not in tree:
         raise ValueError(f"checkpoint has no 'params': {list(tree)}")
     if not tree.get("batch_stats"):
         raise ValueError("checkpoint has no 'batch_stats' but the model uses BatchNorm; refusing to "
                          "pair trained params with freshly initialised statistics")
-    cfg = dict(backbone_depth=backbone_depth, num_iter=num_iter, share_weights=share_weights)
     batch_stats = tree["batch_stats"]
-    out: Dict[str, Any] = {"state_dict": state_dict_from_jax(tree, **cfg)}
+    out: Dict[str, Any] = {"state_dict": state_dict_from_jax(tree, **config)}
     if tree.get("ema_params") is not None:
         out["ema"] = _parameters(state_dict_from_jax(
-            {"params": tree["ema_params"], "batch_stats": batch_stats}, **cfg))
+            {"params": tree["ema_params"], "batch_stats": batch_stats}, **config))
     if "opt_state" not in tree:
         return out
     if param_names is None:
@@ -227,8 +261,8 @@ def state_from_jax(
     if len(adam) != 1:
         raise ValueError("opt_state holds no single scale_by_adam state (count, mu, nu)")
     adam = adam[0]
-    mu = state_dict_from_jax({"params": adam["mu"], "batch_stats": batch_stats}, **cfg)
-    nu = state_dict_from_jax({"params": adam["nu"], "batch_stats": batch_stats}, **cfg)
+    mu = state_dict_from_jax({"params": adam["mu"], "batch_stats": batch_stats}, **config)
+    nu = state_dict_from_jax({"params": adam["nu"], "batch_stats": batch_stats}, **config)
     count = torch.tensor(float(np.asarray(adam["count"])))
     out["optimizer"] = {"state": {
         i: {"step": count.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
@@ -255,15 +289,17 @@ def checkpoint_state_dict(ckpt: Mapping[str, Any], prefer_ema: bool = True) -> D
 
 
 def load_checkpoint(
-    path: str, backbone_depth: Any = 50, num_iter: int = 3, share_weights: bool = False
+    path: str, backbone_depth: Any = 50, num_iter: int = 3, share_weights: bool = False,
+    **config: Any,
 ) -> Dict[str, torch.Tensor]:
     """The model state dict of the checkpoint at ``path``
     (:func:`read_checkpoint`, :func:`checkpoint_state_dict`); a JAX
-    checkpoint is converted for the model of the given configuration, its
-    moving average preferred."""
+    checkpoint is converted for the model of the given configuration
+    (``config``: the ablation flags of :func:`rot_mv_entries`), its moving
+    average preferred."""
     ckpt = read_checkpoint(path)
     if is_jax_tree(ckpt):  # the weights alone: no optimizer state to convert
         weights = {k: v for k, v in ckpt.items() if k != "opt_state"}
         ckpt = state_from_jax(weights, backbone_depth=backbone_depth, num_iter=num_iter,
-                              share_weights=share_weights)
+                              share_weights=share_weights, **config)
     return checkpoint_state_dict(ckpt)

@@ -15,7 +15,8 @@ partner among the other in-split cameras of the same frame. Two modes:
 - ``build_pair_index``: a dedicated ``numpy.random.Generator(seed)``; the
   same distribution, independent of other users of ``random``.
 
-The V-view index (``build_multiview_index``) is not ported yet (ROADMAP A11).
+``build_multiview_index`` draws the V-view index of ``data/multiview.py``
+with a ``numpy.random.Generator(seed)``, bit for bit the JAX package's.
 """
 
 from __future__ import annotations
@@ -36,6 +37,16 @@ CAMERA_TAGS: Dict[str, List[int]] = {
 }
 
 PairIndex = List[Tuple[int, int, int]]  # (file_idx, idx, partner_idx)
+MultiViewIndex = List[Tuple[int, Tuple[int, ...]]]  # (file_idx, view rows)
+
+
+def _frame_candidates(n: int, cameras: set, num_cameras: int):
+    """``(idx, candidates)`` for every in-split row of an ``n``-row file, in
+    row order: the other in-split rows of its frame."""
+    valid = {i for i in range(n) if (i % num_cameras) in cameras}
+    for idx in sorted(valid):
+        start = (idx // num_cameras) * num_cameras
+        yield idx, [i for i in range(start, start + num_cameras) if i in valid and i != idx]
 
 
 def build_pair_index(
@@ -52,10 +63,7 @@ def build_pair_index(
     rng = np.random.default_rng(seed)
     index: PairIndex = []
     for file_i, n in enumerate(file_sizes):
-        valid = {i for i in range(n) if (i % num_cameras) in cameras}
-        for idx in sorted(valid):
-            start = (idx // num_cameras) * num_cameras
-            candidates = [i for i in range(start, start + num_cameras) if i in valid and i != idx]
+        for idx, candidates in _frame_candidates(n, cameras, num_cameras):
             if candidates:
                 index.append((file_i, idx, int(candidates[rng.integers(len(candidates))])))
     return index
@@ -133,3 +141,35 @@ def reference_pair_indices(
         test_file_sizes, test_camera_tag, rng=rng, num_cameras=num_cameras
     )
     return train, test
+
+
+def build_multiview_index(
+    file_sizes: Sequence[int],
+    camera_tag: str = "all",
+    n_views: int = 3,
+    seed: int = 0,
+    num_cameras: int = NUM_CAMERAS,
+) -> MultiViewIndex:
+    """The V-view index: for every in-split row, ``n_views - 1`` distinct
+    partners drawn without replacement from the other in-split cameras of
+    its frame by ``numpy.random.default_rng(seed)`` (``Generator.choice``).
+    Rows whose frame has too few other valid rows are skipped; an
+    ``n_views`` larger than the split's cameras raises, since every frame
+    would be skipped."""
+    if n_views < 2:
+        raise ValueError(f"n_views must be >= 2, got {n_views}")
+    cameras = set(CAMERA_TAGS[camera_tag])
+    if n_views > len(cameras):
+        raise ValueError(
+            f"n_views={n_views} exceeds the {len(cameras)} cameras of the {camera_tag!r} split — "
+            f"every frame would be skipped and the dataset would be empty"
+        )
+    rng = np.random.default_rng(seed)
+    index: MultiViewIndex = []
+    for file_i, n in enumerate(file_sizes):
+        for idx, candidates in _frame_candidates(n, cameras, num_cameras):
+            if len(candidates) >= n_views - 1:
+                partners = rng.choice(np.asarray(candidates, dtype=np.int64), size=n_views - 1,
+                                      replace=False)
+                index.append((file_i, (idx, *(int(p) for p in partners))))
+    return index

@@ -21,13 +21,15 @@ import torch
 
 from rot_mvgaze_tpu_torch.utils.device import resolve_device
 
-_FLOAT_KEYS = ("gt_gaze", "gt_gaze_1", "head_pose_0", "head_pose_1")
-_INT_KEYS = ("idx_0", "idx_1")
+_FLOAT_KEYS = ("gt_gaze", "gt_gaze_1", "head_pose_0", "head_pose_1",
+               "gt_gazes", "head_poses")  # the last two: stacked V-view labels
+_INT_KEYS = ("idx_0", "idx_1", "idxs")
 
 
 def collate(samples: list) -> Dict[str, np.ndarray]:
     """Stack a list of sample dicts into one batch dict: labels and poses
-    float32, row indices int32, the rest (uint8 images) as they are."""
+    float32, row indices int32 (V-view ``idxs`` (B, V)), the rest (uint8
+    images) as they are."""
     batch: Dict[str, np.ndarray] = {}
     for k in samples[0]:
         vals = [s[k] for s in samples]

@@ -4,8 +4,9 @@ Rows have the real datasets' schema and layout: ``face_patch (N,H,W,3)
 uint8``, ``face_gaze (N,2)``, ``face_head_pose (N,2)``, frame-major over 18
 cameras. :func:`synthetic_rows` makes the arrays; :func:`write_synthetic_h5`
 writes them to an HDF5 archive (``h5py`` is imported only there);
-:class:`InMemoryGazeDataset` serves them with ``GazeDataset``'s sample
-contract and no archive at all.
+:class:`InMemoryGazeDataset` and :class:`InMemoryMultiViewGazeDataset`
+serve them with ``GazeDataset``'s and ``MultiViewGazeDataset``'s sample
+contracts and no archive at all.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from rot_mvgaze_tpu_torch.data.pairing import build_pair_index_reference
+from rot_mvgaze_tpu_torch.data.multiview import stack_views
+from rot_mvgaze_tpu_torch.data.pairing import build_multiview_index, build_pair_index_reference
 
 #: Label range (rad) and normalisation half-range of the learnable corpus.
 LEARNABLE_GAZE_RANGE = 0.6
@@ -137,3 +139,39 @@ class InMemoryGazeDataset:
                 "head_pose_0": pose[a].astype(np.float64), "idx_0": a,
                 "img_1": imgs[b], "gt_gaze_1": gaze[b].astype(np.float64),
                 "head_pose_1": pose[b].astype(np.float64), "idx_1": b}
+
+
+class InMemoryMultiViewGazeDataset:
+    """``MultiViewGazeDataset``'s V-view samples over synthetic subjects held
+    in memory, for machines without ``h5py``: subject ``i`` as in
+    :class:`InMemoryGazeDataset`, the index from ``build_multiview_index``
+    with ``seed``. It yields what ``MultiViewGazeDataset("xgaze", root,
+    "rgb", names, n_views, camera_tag, seed)`` yields over
+    ``write_synthetic_dataset(root, names, n_frames, image_size, seed,
+    learnable=learnable)``, bit for bit."""
+
+    def __init__(
+        self,
+        subjects: int,
+        n_views: int = 3,
+        n_frames: int = 4,
+        image_size: int = 32,
+        seed: int = 0,
+        learnable: bool = False,
+        camera_tag: str = "all",
+    ) -> None:
+        self.rows = [
+            synthetic_rows(n_frames, 18, image_size, seed + i, learnable) for i in range(subjects)
+        ]
+        self.n_views = int(n_views)
+        self.file_sizes = [len(r[0]) for r in self.rows]
+        self.idx_to_kv = build_multiview_index(self.file_sizes, camera_tag, n_views=self.n_views, seed=seed)
+
+    def __len__(self) -> int:
+        return len(self.idx_to_kv)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        subject, idxs = self.idx_to_kv[index]
+        imgs, gaze, pose = self.rows[subject]
+        return stack_views([{"img": imgs[i], "gaze": gaze[i].astype(np.float64),
+                             "head_pose": pose[i].astype(np.float64)} for i in idxs], idxs)

@@ -1,11 +1,13 @@
-"""Evaluation (port of the two-view part of ``rot_mvgaze_tpu/evaluate.py``).
+"""Evaluation (port of ``rot_mvgaze_tpu/evaluate.py``).
 
 The reference's protocol: the eval forward over a test loader (eval
 preprocessing, BatchNorm on running statistics, float32), then the mean
 angular error in degrees, computed on the host in float64 against the
 loader's own labels. A ragged last batch runs as it is. The breakdown
 groups the per-sample errors by camera (``idx_0 % 18``) and by subject
-(``dataset.idx_to_kv``).
+(``dataset.idx_to_kv``). Stereo batches, V-view batches (``imgs``; the
+metric is view 0's) and, with ``single_view``, ``SingleViewGazeNet`` on
+``img_0`` alone.
 """
 
 from __future__ import annotations
@@ -19,29 +21,40 @@ from torch import nn
 from rot_mvgaze_tpu_torch.data.pairing import NUM_CAMERAS
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
 
-#: the batch keys the eval forward reads
+#: the batch keys the eval forward reads: stereo, V-view, single-view
 EVAL_KEYS = ("img_0", "img_1", "head_pose_0", "head_pose_1")
+MULTIVIEW_EVAL_KEYS = ("imgs", "head_poses")
+SINGLE_VIEW_EVAL_KEYS = ("img_0",)
 
 
 def eval_predictions(
     eval_step: Callable[..., Dict[str, torch.Tensor]],
     loader: Iterable,
     device: torch.device,
+    keys: Tuple[str, ...],
     params: Optional[Dict[str, torch.Tensor]] = None,
     on_batch: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None,
 ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-    """One pass of ``eval_step`` (``make_eval_step``) over ``loader``'s numpy
-    batches: ``(pred, gt, idx_0)``, predictions and the loader's labels in
-    float64, and the ``idx_0`` column (None when a batch lacks it).
-    ``on_batch(i, out)`` sees each batch's eval output."""
+    """One pass of ``eval_step`` (``make_eval_step``, or the V-view or
+    single-view step) over ``loader``'s numpy batches: ``(pred, gt, idx_0)``,
+    predictions and the loader's labels in float64, and the ``idx_0`` column
+    (None when a batch lacks it). ``keys`` are the batch keys handed to
+    ``eval_step``: :data:`EVAL_KEYS`, :data:`MULTIVIEW_EVAL_KEYS` or
+    :data:`SINGLE_VIEW_EVAL_KEYS`. A V-view batch is scored on view 0:
+    ``gt_gazes[:, 0]`` and ``idxs[:, 0]``. ``on_batch(i, out)`` sees each
+    batch's eval output."""
+    multiview = keys == MULTIVIEW_EVAL_KEYS
     preds, gts, idxs = [], [], []
     for i, batch in enumerate(loader):
         out = eval_step(
-            {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in EVAL_KEYS}, params
+            {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}, params
         )
         preds.append(out["pred_gaze"].cpu().numpy().astype(np.float64))
-        gts.append(np.asarray(batch["gt_gaze"], dtype=np.float64))
-        if "idx_0" in batch:
+        gt = np.asarray(batch["gt_gazes"])[:, 0] if multiview else batch["gt_gaze"]
+        gts.append(np.asarray(gt, dtype=np.float64))
+        if multiview and "idxs" in batch:
+            idxs.append(np.asarray(batch["idxs"])[:, 0])
+        elif "idx_0" in batch:
             idxs.append(np.asarray(batch["idx_0"]).reshape(-1))
         if on_batch is not None:
             on_batch(i, out)
@@ -56,9 +69,11 @@ def evaluate_gaze(
     loader: Iterable,
     image_size: int = 224,
     params: Optional[Dict[str, torch.Tensor]] = None,
+    single_view: bool = False,
 ) -> float:
     """Mean angular error (degrees, float64 on the host) over a test loader."""
-    return evaluate_gaze_detailed(model, loader, image_size=image_size, params=params)["mean_error"]
+    return evaluate_gaze_detailed(model, loader, image_size=image_size, params=params,
+                                  single_view=single_view)["mean_error"]
 
 
 def evaluate_gaze_detailed(
@@ -68,15 +83,24 @@ def evaluate_gaze_detailed(
     dataset: Any = None,
     image_size: int = 224,
     params: Optional[Dict[str, torch.Tensor]] = None,
+    single_view: bool = False,
 ) -> Dict[str, Any]:
     """The eval protocol and its breakdown (:func:`breakdown_from_errors`)
     over ``loader``, on the model's device and with its parameters (or
     ``params``, e.g. a moving average, by ``named_parameters`` name).
-    ``per_subject`` needs ``dataset`` and a loader that yields it in order."""
-    from rot_mvgaze_tpu_torch.train.steps import make_eval_step  # train imports this module
+    ``single_view``: a ``SingleViewGazeNet`` on each batch's ``img_0`` (a
+    ``GazeDataset(stereo=False)`` loader, or a stereo one); otherwise the
+    stereo model. ``per_subject`` needs ``dataset`` and a loader that
+    yields it in order."""
+    # train imports this module
+    from rot_mvgaze_tpu_torch.train.steps import make_eval_step, make_single_view_eval_step
 
     device = next(model.parameters()).device
-    pred, gt, idx_0 = eval_predictions(make_eval_step(model, image_size), loader, device, params)
+    if single_view:
+        step, keys = make_single_view_eval_step(model, image_size), SINGLE_VIEW_EVAL_KEYS
+    else:
+        step, keys = make_eval_step(model, image_size), EVAL_KEYS
+    pred, gt, idx_0 = eval_predictions(step, loader, device, keys, params)
     return breakdown_from_errors(angular_error_numpy(pred, gt), idx_0=idx_0, dataset=dataset)
 
 

@@ -10,7 +10,7 @@ For the shipped configuration (``iter_decay=0.5``, 3 iterations,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -46,9 +46,10 @@ class StereoL1Loss:
 class IterationLoss:
     """``total = total * iter_decay + loss(iter_i ∪ common)`` over the
     ``iter_{i}`` keys in numeric order, plus the optional
-    ``additional_decay`` term for the last iteration."""
+    ``additional_decay`` term for the last iteration. ``loss`` is a
+    :class:`StereoL1Loss` or a ``MultiViewL1Loss``."""
 
-    loss: StereoL1Loss
+    loss: Callable[[Dict[str, Any]], torch.Tensor]
     iter_decay: float = 1.0
     additional_decay: Optional[float] = None
 

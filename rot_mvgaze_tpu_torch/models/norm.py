@@ -12,6 +12,10 @@ fused residual add and ReLU:
   hand-written CUDA kernels on the card), then the running-statistics
   update;
 - eval: ``nn.BatchNorm2d``'s own eval forward, then the add, then ReLU.
+
+:class:`IntensityBatchNorm` is the ``share_feature`` fuser's normaliser of
+rotatable features (counterpart of ``IntensityBatchNorm`` in
+``rot_mvgaze_tpu/models/rot_mv.py``), plain PyTorch as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,3 +64,34 @@ class BatchNormAct(nn.BatchNorm2d):
             # nn.BatchNorm2d would raise
             self.running_var.lerp_(var * (n / max(n - 1, 1)), factor)
         return y
+
+
+class IntensityBatchNorm(nn.Module):
+    """Divides rotatable features (B, 3, C) by a running std of their
+    per-vector intensity ``||x||_2`` over the rotation axis.
+
+    The buffer is ``running_mean`` (1, 1, C), initialised to ones, as the
+    reference names it, though it tracks a std. In train mode the batch's
+    biased std of the intensities (taken in float32, without gradient,
+    floored at ``eps`` before the square root) moves the buffer by
+    ``momentum`` *before* the division, which uses the new value; in eval
+    the buffer as it is. The divisor is ``running + eps`` in ``x``'s dtype.
+    """
+
+    def __init__(self, n_channels: int, momentum: float = 0.05, eps: float = 1e-4) -> None:
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.register_buffer("running_mean", torch.ones(1, 1, n_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            with torch.no_grad():
+                intensity = torch.linalg.vector_norm(x.float(), dim=-2, keepdim=True)
+                mean = intensity.mean(dim=0, keepdim=True)
+                mean_sq = intensity.square().mean(dim=0, keepdim=True)
+                std = torch.sqrt(torch.clamp(mean_sq - mean.square(), min=self.eps))
+                self.running_mean.copy_(
+                    self.running_mean * (1 - self.momentum) + std * self.momentum
+                )
+        return x / (self.running_mean + self.eps).to(x.dtype)

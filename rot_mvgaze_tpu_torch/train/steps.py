@@ -137,6 +137,27 @@ def make_train_step(
       draws what the uninterrupted run drew; ``generator`` itself is not
       advanced.
     """
+    check_step_options(compute_dtype, grad_accum, ema_decay, ema)
+
+    def prepare(mb, generator):
+        if augment:
+            imgs = augment_views(generator, mb, image_size, compute_dtype)
+        else:
+            imgs = {"img_0": mb["img_0"], "img_1": mb["img_1"]}
+        data = {**imgs, **prepare_rotations(mb)}
+        return data, imgs, data["gt_gaze"]
+
+    return build_train_step(
+        model, metrics, optimizer, prepare, "img_0", schedule=schedule,
+        compute_dtype=compute_dtype, augment=augment, grad_accum=grad_accum,
+        ema_decay=ema_decay, ema=ema, freeze_bn=freeze_bn, with_images=with_images,
+        fold_key_by_step=fold_key_by_step,
+    )
+
+
+def check_step_options(compute_dtype, grad_accum, ema_decay, ema) -> None:
+    """The checks shared by the step factories: ``ValueError`` on a bad
+    option."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if grad_accum < 1:
@@ -145,17 +166,37 @@ def make_train_step(
         raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
     if ema_decay and ema is None:
         raise ValueError("ema_decay > 0 needs an EMA dict (init_ema) to update")
+
+
+def build_train_step(
+    model: nn.Module,
+    metrics: Callable[[Dict[str, Any]], torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    prepare: Callable[..., Any],
+    rows_key: str,
+    *,
+    schedule: Optional[Callable[[int], float]],
+    compute_dtype: torch.dtype,
+    augment: bool,
+    grad_accum: int,
+    ema_decay: float,
+    ema: Optional[Dict[str, torch.Tensor]],
+    freeze_bn: bool,
+    with_images: bool,
+    fold_key_by_step: bool,
+) -> Callable[..., Dict[str, Any]]:
+    """The step of :func:`make_train_step` over any model input:
+    ``prepare(micro_batch, generator)`` returns the model's input dict, the
+    two preview views ``{"img_0", "img_1"}`` (B, S, S, 3) and the view-0
+    labels the error is taken against; ``batch[rows_key]`` counts the
+    batch's rows."""
     first = next(iter(model.parameters()))
     folded: Dict[torch.device, torch.Generator] = {}
 
     def micro_step(mb, generator):
         """Forward and backward of one micro-batch: (loss, error, pred_gaze,
-        augmented views)."""
-        if augment:
-            imgs = augment_views(generator, mb, image_size, compute_dtype)
-        else:
-            imgs = {"img_0": mb["img_0"], "img_1": mb["img_1"]}
-        data = {**imgs, **prepare_rotations(mb)}
+        preview views)."""
+        data, imgs, gt = prepare(mb, generator)
         with torch.autocast(
             first.device.type, dtype=compute_dtype, enabled=compute_dtype != torch.float32
         ):
@@ -163,7 +204,7 @@ def make_train_step(
         loss = metrics(_float_predictions(out))
         loss.backward()
         with torch.no_grad():
-            error = angular_error(out["pred_gaze"].float(), data["gt_gaze"]).mean()
+            error = angular_error(out["pred_gaze"].float(), gt).mean()
         return loss.detach(), error, out["pred_gaze"].detach(), imgs
 
     def train_step(
@@ -177,7 +218,7 @@ def make_train_step(
                 folded[device] = torch.Generator(device)
             generator = folded[device]
             generator.manual_seed(fold_seed(base, step))
-        rows = batch["img_0"].shape[0]
+        rows = batch[rows_key].shape[0]
         if rows % grad_accum:
             raise ValueError(f"batch of {rows} rows does not split into {grad_accum} micro-batches")
         model.train(not freeze_bn)
@@ -235,13 +276,36 @@ def make_eval_step(model: nn.Module, image_size: int = 224) -> Callable[..., Dic
             "rot_0": rotation_matrix_2d(batch["head_pose_0"].float()),
             "rot_1": rotation_matrix_2d(batch["head_pose_1"].float()),
         }
-        model.eval()
-        with torch.autocast(data["img_0"].device.type, enabled=False):
-            if params is None:
-                out = model(data)
-            else:
-                out = torch.func.functional_call(model, params, (data,))
+        out = eval_forward(model, data, params)
         return {"pred_gaze": out["pred_gaze"].float(), "img_0": data["img_0"][:8],
                 "img_1": data["img_1"][:8]}
 
     return eval_step
+
+
+def make_single_view_eval_step(
+    model: nn.Module, image_size: int = 224
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns ``eval_step(batch, params=None) -> {pred_gaze}`` of a
+    ``SingleViewGazeNet``: ``img_0`` alone, through the eval stack and the
+    float32 eval-mode forward."""
+
+    @torch.inference_mode()
+    def eval_step(batch, params=None):
+        data = {"img_0": eval_preprocess(batch["img_0"], image_size)}
+        return {"pred_gaze": eval_forward(model, data, params)["pred_gaze"].float()}
+
+    return eval_step
+
+
+def eval_forward(
+    model: nn.Module, data: Dict[str, torch.Tensor], params: Optional[Dict[str, torch.Tensor]] = None
+) -> Dict[str, Any]:
+    """The model's eval-mode forward in float32 with autocast off, with
+    ``params`` (by ``named_parameters`` name) in place of its own when
+    given."""
+    model.eval()
+    with torch.autocast(next(iter(data.values())).device.type, enabled=False):
+        if params is None:
+            return model(data)
+        return torch.func.functional_call(model, params, (data,))

@@ -1,5 +1,5 @@
-"""Training runtime (port of the single-process, two-view part of
-``rot_mvgaze_tpu/train/trainer.py``).
+"""Training runtime (port of the single-process part of
+``rot_mvgaze_tpu/train/trainer.py``, stereo and V-view).
 
 - :func:`make_optimizer`: ``torch.optim.Adam`` with coupled L2.
 - :class:`Trainer`: evaluation before the first epoch and after each one,
@@ -15,8 +15,11 @@ average and the epoch position) and from an ImageNet backbone
 (``pretrained_backbone``), and exports the bare reference state dict
 (:meth:`Trainer.export_torch_checkpoint`).
 
-Not ported yet: the V-view stack (ROADMAP A11), meshes, several hosts and
-their preemption agreement (A13) and profiler traces.
+With ``num_views > 2`` in the config it trains ``FeatRotationMultiView``
+through the V-view steps (``train/multiview_steps.py``) and scores view 0.
+
+Not ported yet: meshes, several hosts and their preemption agreement
+(ROADMAP A13) and profiler traces (A19).
 """
 
 from __future__ import annotations
@@ -35,12 +38,19 @@ from torch import nn
 from rot_mvgaze_tpu_torch.compat.convert import (
     checkpoint_state_dict,
     is_jax_tree,
+    model_config,
     read_checkpoint,
     state_from_jax,
 )
 from rot_mvgaze_tpu_torch.compat.pretrained import load_pretrained_backbone, resolve_pretrained
 from rot_mvgaze_tpu_torch.data.pipeline import device_prefetch
-from rot_mvgaze_tpu_torch.evaluate import breakdown_from_errors, eval_predictions, format_breakdown
+from rot_mvgaze_tpu_torch.evaluate import (
+    EVAL_KEYS,
+    MULTIVIEW_EVAL_KEYS,
+    breakdown_from_errors,
+    eval_predictions,
+    format_breakdown,
+)
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
 from rot_mvgaze_tpu_torch.train.checkpoints import (
     CHECKPOINT_GLOB,
@@ -48,6 +58,7 @@ from rot_mvgaze_tpu_torch.train.checkpoints import (
     is_full_state,
     save_state,
 )
+from rot_mvgaze_tpu_torch.train.multiview_steps import make_multiview_eval_step, make_multiview_train_step
 from rot_mvgaze_tpu_torch.train.schedule import cyclic_triangular2
 from rot_mvgaze_tpu_torch.train.steps import init_ema, make_eval_step, make_train_step
 from rot_mvgaze_tpu_torch.train.tb import SummaryWriter, make_image_grid
@@ -69,7 +80,8 @@ def make_optimizer(
 
 
 class Trainer:
-    """Trains and evaluates a ``FeatRotationSymm`` on one device.
+    """Trains and evaluates a ``FeatRotationSymm`` (or, with ``num_views >
+    2``, a ``FeatRotationMultiView``) on one device.
 
     ``config`` is any object with attributes (a ``SimpleNamespace`` or the
     CLI's namespace); the Trainer reads ``mode`` (``train``/``test``),
@@ -78,8 +90,10 @@ class Trainer:
     ``scheduler_step`` (``epoch``, the reference's, or
     ``iteration``), ``base_lr``, ``max_lr``, ``weight_decay``, ``bf16``
     (bf16 autocast in the train step), ``grad_accum``, ``ema_decay``,
-    ``freeze_bn`` and ``keep_last_n``, each with the JAX Trainer's default
-    where it is absent.
+    ``freeze_bn``, ``keep_last_n`` and ``num_views``, each with the JAX
+    Trainer's default where it is absent. ``num_views > 2`` selects the
+    V-view steps: batches of ``MultiViewGazeDataset``, no ``grad_accum``,
+    images/s counting V images per sample, and the metric on view 0.
 
     ``model`` brings its own weights; ``init_state_dict`` loads others
     first, then ``pretrained_backbone`` (a torchvision ResNet file, or
@@ -116,6 +130,7 @@ class Trainer:
         self.mode = getattr(config, "mode", "train")
         self._ema_decay = float(getattr(config, "ema_decay", 0.0) or 0.0)
         self.compute_dtype = torch.bfloat16 if getattr(config, "bf16", False) else torch.float32
+        self.num_views = int(getattr(config, "num_views", 2) or 2)
 
         # ---- weights ----
         ckpt_resume = getattr(config, "ckpt_resume", None)
@@ -154,9 +169,7 @@ class Trainer:
             ckpt = read_checkpoint(ckpt_resume)
             if is_jax_tree(ckpt):
                 ckpt = state_from_jax(
-                    ckpt, [n for n, _ in model.named_parameters()],
-                    backbone_depth=model.backbone_depth, num_iter=model.num_iter,
-                    share_weights=model.share_weights,
+                    ckpt, [n for n, _ in model.named_parameters()], **model_config(model)
                 )
             full = is_full_state(ckpt) and not self._weights_only
             # a weights-only start takes the moving average, the weights a
@@ -259,13 +272,23 @@ class Trainer:
             if not getattr(train_loader, "drop_last", False):
                 raise ValueError("grad_accum > 1 requires a drop_last train loader (a ragged "
                                  "last batch cannot split into micro-batches)")
-        self._train_step = make_train_step(
-            self.model, metrics, self.optimizer, image_size=self.image_size,
-            schedule=self.schedule, compute_dtype=self.compute_dtype, grad_accum=grad_accum,
+        step_options = dict(
+            image_size=self.image_size, schedule=self.schedule, compute_dtype=self.compute_dtype,
             ema_decay=self._ema_decay, ema=self.ema if self._ema_decay > 0 else None,
             freeze_bn=freeze_bn, with_images=True, fold_key_by_step=True,
         )
-        self._eval_step = make_eval_step(self.model, self.image_size)
+        if self.num_views > 2:
+            if grad_accum > 1:
+                raise ValueError("grad_accum > 1 is not supported with num_views > 2")
+            self._train_step = make_multiview_train_step(self.model, metrics, self.optimizer,
+                                                         **step_options)
+            self._eval_step = make_multiview_eval_step(self.model, self.image_size)
+            self._eval_keys = MULTIVIEW_EVAL_KEYS
+        else:
+            self._train_step = make_train_step(self.model, metrics, self.optimizer,
+                                               grad_accum=grad_accum, **step_options)
+            self._eval_step = make_eval_step(self.model, self.image_size)
+            self._eval_keys = EVAL_KEYS
         self._preempted = False
 
     # ------------------------------------------------------------------
@@ -340,9 +363,9 @@ class Trainer:
         for batch in device_prefetch(iter(self.train_loader), self.device):
             stats = self._train_step(batch, self.generator, step=self.step)
             self._epoch_step += 1
-            n_samples += int(batch["img_0"].shape[0])
+            n_samples += int((batch["imgs"] if "imgs" in batch else batch["img_0"]).shape[0])
             if self.step != 0 and self.step % self.print_freq == 0:
-                ips = 2 * (n_samples - last_n) / max(timer.stop(stats), 1e-9)
+                ips = self.num_views * (n_samples - last_n) / max(timer.stop(stats), 1e-9)
                 timer.start()
                 last_n = n_samples
                 loss, err = float(stats["loss_gaze"]), float(stats["error_gaze"])
@@ -376,7 +399,7 @@ class Trainer:
 
         pred, gt, idx_0 = eval_predictions(
             # the moving average when there is one, else the module's own
-            self._eval_step, self.test_loader, self.device, self.ema, previews
+            self._eval_step, self.test_loader, self.device, self._eval_keys, self.ema, previews
         )
         n_test = (self.test_loader.num_samples() if hasattr(self.test_loader, "num_samples")
                   else len(self.test_loader.dataset))
@@ -406,7 +429,8 @@ class Trainer:
         if len(rows) < idx_0.shape[0]:
             return None
         rows = np.asarray(rows)[: idx_0.shape[0]]
-        expect = np.asarray([ds.idx_to_kv[int(r)][1] for r in rows], np.int64)
+        # a V-view index entry holds all its views' rows: view 0's is first
+        expect = np.asarray([np.ravel(ds.idx_to_kv[int(r)][1])[0] for r in rows], np.int64)
         return rows if np.array_equal(idx_0, expect) else None
 
     def test_breakdown(self) -> Dict[str, Any]:

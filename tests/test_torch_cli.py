@@ -97,11 +97,12 @@ def test_device_is_the_only_new_flag():
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "num_views_3": (["--num_views", "3"], "A11"),
-    "encode_rotmat": (["--encode_rotmat", "true"], "A5"),
-    "share_feature": (["--share_feature", "true"], "A5"),
-    "ignore_rotmat": (["--ignore_rotmat", "true"], "A5"),
-    "fuse_views": (["--fuse_views", "true"], "A16"),
+    # ported; each refused as JAX refuses it, in a combination
+    "num_views_3": (["--num_views", "3", "--grad_accum", "2"], "--num_views 3 does not support"),
+    "encode_rotmat": (["--encode_rotmat", "true", "--num_views", "3"], "does not support: --encode_rotmat"),
+    "share_feature": (["--share_feature", "true", "--share_weights", "true"], "cannot be combined"),
+    "ignore_rotmat": (["--ignore_rotmat", "true", "--encode_rotmat", "true"], "cannot be combined"),
+    "fuse_views": (["--fuse_views", "true", "--freeze_bn", "true"], "silently inert"),
     "bn_stat_subsample": (["--bn_stat_subsample", "2"], "A17"),
     "remat": (["--remat", "true"], "A18"),
     "spatial_partition": (["--spatial_partition", "2"], "A13"),

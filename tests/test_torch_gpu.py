@@ -563,3 +563,58 @@ def test_trainer_step_launch_counts(cuda, tmp_path, option):
     assert np.isfinite(trainer.test(0))
     assert fusion.rotate_concat_matmul_relu.launches_by_variant["generic"] - generic == 4 * 3
     assert [k.launches for k in batchnorm.KERNELS] == bn_before
+
+
+FAMILY_CASES = {  # flags -> (BN launches per BatchNorm, wgmma fuser launches) per update
+    "fuse_views": ({"fuse_views": True}, 1, 4),
+    "ignore_rotmat": ({"ignore_rotmat": True}, 2, 0),
+    "encode_rotmat": ({"encode_rotmat": True}, 2, 0),
+    "share_feature": ({"share_feature": True}, 2, 0),
+    "share_weights": ({"share_weights": True}, 2, 4),
+    "v3": ({"num_views": 3}, 1, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FAMILY_CASES))
+def test_model_family_update_launch_counts(cuda, name):
+    """One bf16 update (R18, 2 iterations, 8 pairs or frames, 64x64) of each
+    configuration beyond the default one: with both (or all) views in one
+    backbone batch every BN kernel launches once per BatchNorm, else twice;
+    the fuser's wgmma variant runs 2 x 2 times where the default fuser path
+    runs (fuse_views, share_weights), never under the ablations or the
+    V-view model (their fusers are F.linear MLPs, as in JAX); the loss is
+    finite."""
+    from rot_mvgaze_tpu_torch.losses import IterationLoss, MultiViewL1Loss, StereoL1Loss
+    from rot_mvgaze_tpu_torch.models import FeatRotationMultiView, FeatRotationSymm
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+    from rot_mvgaze_tpu_torch.train import make_multiview_train_step, make_optimizer, make_train_step
+
+    flags, per_bn, n_fuser = FAMILY_CASES[name]
+    views = flags.get("num_views", 2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.manual_seed(0)
+    if views > 2:
+        model = FeatRotationMultiView(backbone_depth=18, num_iter=2).to(cuda)
+        step = make_multiview_train_step(model, IterationLoss(MultiViewL1Loss(0.01), 0.5),
+                                         make_optimizer(model.parameters()), image_size=64,
+                                         compute_dtype=torch.bfloat16)
+        batch = {"imgs": torch.randint(0, 256, (8, views, 64, 64, 3), dtype=torch.uint8, device=cuda, generator=g),
+                 "head_poses": torch.rand(8, views, 2, device=cuda, generator=g) - 0.5,
+                 "gt_gazes": torch.rand(8, views, 2, device=cuda, generator=g) - 0.5}
+    else:
+        model = FeatRotationSymm(backbone_depth=18, num_iter=2, **flags).to(cuda)
+        step = make_train_step(model, IterationLoss(StereoL1Loss(0.01), 0.5), make_optimizer(model.parameters()),
+                               image_size=64, compute_dtype=torch.bfloat16)
+        batch = {f"img_{v}": torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, device=cuda, generator=g)
+                 for v in (0, 1)}
+        batch.update({k: torch.rand(8, 2, device=cuda, generator=g) - 0.5
+                      for k in ("head_pose_0", "head_pose_1", "gt_gaze", "gt_gaze_1")})
+    n_bn = sum(isinstance(m, BatchNormAct) for m in model.modules())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    before = [k.launches for k in batchnorm.KERNELS] + [fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]]
+    stats = step(batch, gen, step=0)
+    torch.cuda.synchronize()
+    after = [k.launches for k in batchnorm.KERNELS] + [fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]]
+    assert [a - b for a, b in zip(after, before)] == [per_bn * n_bn] * len(batchnorm.KERNELS) + [n_fuser]
+    assert torch.isfinite(stats["loss_gaze"])

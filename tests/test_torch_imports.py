@@ -56,7 +56,8 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                    "train.checkpoints", "train.tb", "utils.helper", "utils.seed",
                    "utils.profiling", "utils.summary", "utils.device", "utils.config",
                    "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "cli.main",
-                   "__main__"):
+                   "__main__", "models.multiview", "models.single", "losses.multiview",
+                   "data.multiview", "train.multiview_steps"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in NOT_ON_THE_CARD] == []

@@ -145,10 +145,18 @@ def test_state_dict_from_jax_equals_jax_converter(r18, cfg):
     model.load_state_dict(got, strict=True)
 
 
+# each ablation with the flag the JAX model refuses beside it
+REFUSED_WITH = {"encode_rotmat": "ignore_rotmat", "share_feature": "share_weights",
+                "ignore_rotmat": "encode_rotmat"}
+
+
 @pytest.mark.parametrize("ablation", ["encode_rotmat", "share_feature", "ignore_rotmat"])
 def test_unported_ablations_raise(ablation):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        FeatRotationSymm(backbone_depth=18, num_iter=1, **{ablation: True})
+    """The ablations are ported (tests/test_torch_ablations.py); what still
+    raises is each one in a combination the JAX model refuses."""
+    FeatRotationSymm(backbone_depth=18, num_iter=1, **{ablation: True})
+    with pytest.raises(ValueError, match="cannot be combined"):
+        FeatRotationSymm(backbone_depth=18, num_iter=1, **{ablation: True, REFUSED_WITH[ablation]: True})
 
 
 def test_train_mode_forward_raises():
