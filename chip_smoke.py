@@ -139,12 +139,38 @@ script exits non-zero and prints no result line:
    each fused-batch update's 53 calls and their share of the byte bound,
    beside phase 7c's 106 calls of the default update; images/s, peak
    memory, the phase's seconds.
-11. the kernels line, the card line, and as the last line
+11. serving surface: R50 x 3 from phase 8's epoch-1 checkpoint, micro-batch
+   64, counts set to 0 just before each counted path and read just after.
+   (a) One bf16 predictor per ablation (share_weights, ignore_rotmat,
+   encode_rotmat, share_feature; the epoch-1 weights where the key and shape
+   match) serves 100 pairs: 6 wgmma fuser launches per micro-batch under
+   share_weights, 0 under the others; bf16 against the same predictor in
+   f32 mean delta <= 0.1 deg. (b) MultiViewGazePredictor at V=3 serves 100
+   samples (no fuser launch); at V=2 within 1e-3 deg of the stereo
+   predictor in f32. (c) A 448x448 request through the f32 predictor
+   against the same images resized on the CPU: mean delta <= 0.01 deg.
+   (d) int8: every one of R50's 53 conv shapes at 128 images (full-range
+   int8 operands) through im2col + torch._int_mm bit for bit the plain
+   float64 convolution; the dynamic int8 predictor serving 100 pairs
+   launches 53 int8 GEMMs and 6 wgmma fusers per micro-batch; backbone
+   features int8 against f32 on the test subject: mean relative error
+   <= 0.05, cosine >= 0.999; static int8 calibrated on phase 8's test
+   subject, saved, loaded into a fresh predictor, bit for bit; the metric
+   shift of both int8 modes against bf16 (tripwire 3.0 deg). (f) images/s
+   and p50 of bf16, int8 dynamic and int8 static on the same requests, and
+   each one's device time by kernel class (torch.profiler).
+   (e) The bf16 and dynamic int8 stereo models and the V=3 bf16 model
+   exported, saved, loaded by AotGazePredictor with the checkpoint and
+   served: the stereo programs launch the fuser's wgmma kernel 6 times per
+   micro-batch, every program predicts what its live predictor predicts
+   (bit for bit, or within 1e-6 deg). Artifact sizes, peak memory, the
+   phase's seconds.
+12. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-11, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-12, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -152,8 +178,9 @@ old, new, new, old; each builds its own tree's kernels and times the fuser
 at the serving shape (time_fusion's inputs and timing), bn_bwd_dx,
 bn_bwd_reduce, bn_stats and bn_apply over the 106 BN calls of one training step
 (time_bn's inputs and timing), at shapes taken once from this tree's R50
-backbone, and the conv kernel at the probe's shape (run_probe's inputs and
-timing). One JSON line per turn, and a last line with every turn and the
+backbone, the conv kernel at the probe's shape (run_probe's inputs and
+timing), and its own bf16 GazePredictor (phase 4's checkpoint, micro-batch
+64, time_serving). One JSON line per turn, and a last line with every turn and the
 card.
 """
 
@@ -2030,6 +2057,304 @@ def run_family_phase(fusion, batchnorm, default_bn, stereo_ckpt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the serving surface (phase 11)
+# ---------------------------------------------------------------------------
+
+# ablation -> wgmma fuser launches per micro-batch (the ablations' fusers are
+# F.linear MLPs, as in JAX; share_weights keeps the default fuser)
+SURFACE_ABLATIONS = {"share_weights": 6, "ignore_rotmat": 0, "encode_rotmat": 0, "share_feature": 0}
+R50_CONVS = 53
+
+
+def ablation_checkpoint(stereo_ckpt: str, flags: dict, path: str) -> None:
+    """A checkpoint of the ablation's R50 x 3 model: phase 8's epoch-1
+    weights wherever the key and shape match (backbone, lifter, heads), the
+    seeded initialisation elsewhere."""
+    from rot_mvgaze_tpu_torch.compat import read_checkpoint
+    from rot_mvgaze_tpu_torch.compat.convert import checkpoint_state_dict
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = FeatRotationSymm(backbone_depth=50, num_iter=3, **flags)
+    own = model.state_dict()
+    trained = checkpoint_state_dict(read_checkpoint(stereo_ckpt))
+    model.load_state_dict({k: v for k, v in trained.items() if k in own and own[k].shape == v.shape},
+                          strict=False)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def surface_predictor(ckpt: str, dtype, **kw):
+    from rot_mvgaze_tpu_torch.serving import GazePredictor
+
+    return GazePredictor(ckpt, backbone_depth=50, num_iter=3, micro_batch=PAIRS, image_size=224, dtype=dtype,
+                         device="cuda", **kw)
+
+
+def counted(fusion, batchnorm, fn) -> tuple:
+    """(fn's result, launch counts, fuser launches by variant, int8 GEMM
+    launches): the counts set to 0 just before fn and read just after."""
+    from rot_mvgaze_tpu_torch.ops import quant
+
+    reset_counts(fusion, batchnorm)
+    quant.int8_matmul.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, launch_counts(fusion, batchnorm), dict(fusion.rotate_concat_matmul_relu.launches_by_variant),
+            quant.int8_matmul.launches)
+
+
+def check_served(name, counts, by_variant, fuser_per_mb, micro_batches, int8_launches=0, int8_per_mb=0):
+    want = {**dict.fromkeys(PER_STEP, 0), "fusion": fuser_per_mb * micro_batches}
+    if counts != want or by_variant["wgmma"] != want["fusion"] or int8_launches != int8_per_mb * micro_batches:
+        raise RuntimeError(f"{name}: launches {counts} {by_variant}, int8 GEMM {int8_launches}; expected {want}, "
+                           f"all wgmma, int8 GEMM {int8_per_mb} x {micro_batches}")
+
+
+def check_int8_conv_shapes(model) -> dict:
+    """Every R50 conv's shape at micro-batch 64 (two views: 128 images), from
+    hooks on one int8 forward: full-range int8 operands of that shape
+    through the tensor-core product (im2col + torch._int_mm) and through the
+    plain float64 convolution, int32 sums bit for bit."""
+    from rot_mvgaze_tpu_torch.models.resnet import QuantConv2d
+    from rot_mvgaze_tpu_torch.ops import quant
+
+    shapes = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: shapes.append(
+        (tuple(a[0].shape), tuple(m.weight.shape), m.stride, m.padding, m.groups)))
+        for m in model.modules() if isinstance(m, QuantConv2d)]
+    try:
+        with torch.inference_mode():
+            model._feat_extractor(torch.zeros((2 * PAIRS, 224, 224, 3), device="cuda", dtype=torch.bfloat16))
+    finally:
+        for h in hooks:
+            h.remove()
+    if len(shapes) != R50_CONVS:
+        raise RuntimeError(f"int8 R50 ran {len(shapes)} convs, expected {R50_CONVS}")
+    distinct = sorted(set(shapes))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    launches = 0
+    for xs, ws, stride, pad, groups in distinct:
+        x8 = torch.randint(-127, 128, xs, dtype=torch.int8, device="cuda", generator=g)
+        x8 = x8.to(memory_format=torch.channels_last)
+        w8 = torch.randint(-127, 128, ws, dtype=torch.int8, device="cuda", generator=g)
+        before = quant.int8_matmul.launches
+        got = quant.int8_conv_accumulate(x8, w8, stride, pad, groups)
+        launches += quant.int8_matmul.launches - before
+        want = quant.int8_conv_accumulate_reference(x8, w8, stride, pad, groups)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"int8 conv x {xs} w {ws} stride {stride}: the int32 sums differ from the plain "
+                               f"version's in {(got != want).sum().item()} places")
+        del x8, w8, got, want
+    if launches != len(distinct):
+        raise RuntimeError(f"int8 conv checks launched {launches} int8 GEMMs for {len(distinct)} shapes")
+    log(f"int8 conv: all {len(shapes)} R50 conv shapes at {2 * PAIRS} images ({len(distinct)} distinct) through "
+        f"torch._int_mm bit for bit the plain float64 convolution's int32 sums")
+    return {"convs": len(shapes), "distinct_shapes": len(distinct)}
+
+
+def run_serving_surface_phase(fusion, batchnorm, stereo_ckpt) -> dict:
+    """Phase 11: the serving surface at R50 x 3 from phase 8's epoch-1
+    checkpoint. Returns the fuser's launches over the phase's counted
+    paths, by variant, and the numbers."""
+    from rot_mvgaze_tpu_torch.augment import eval_preprocess
+    from rot_mvgaze_tpu_torch.data import InMemoryGazeDataset
+    from rot_mvgaze_tpu_torch.evaluate import EVAL_KEYS
+    from rot_mvgaze_tpu_torch.export import AotGazePredictor, export_serving_artifact
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy, rotation_matrix_2d
+    from rot_mvgaze_tpu_torch.serving import MultiViewGazePredictor
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fuser_launches = 0
+    fuser_by_variant = dict.fromkeys(fusion.VARIANTS, 0)
+    req100 = requests([100], seed=11)[0]
+    micro_batches = 2  # 100 pairs at micro-batch 64
+    out: dict = {}
+
+    def add(counts, by_variant):
+        nonlocal fuser_launches
+        fuser_launches += counts["fusion"]
+        for k in fuser_by_variant:
+            fuser_by_variant[k] += by_variant[k]
+
+    parts: dict = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the ablation predictors: bf16 served with launch counts, f32 beside
+        out["ablations"] = {}
+        for name, per_mb in SURFACE_ABLATIONS.items():
+            path = os.path.join(tmp, f"{name}.pth.tar")
+            ablation_checkpoint(stereo_ckpt, {name: True}, path)
+            pred = surface_predictor(path, torch.bfloat16, **{name: True})
+            pred.warmup()
+            got, counts, by_variant, _ = counted(fusion, batchnorm, lambda: pred.predict(*req100))
+            check_served(name, counts, by_variant, per_mb, micro_batches)
+            add(counts, by_variant)
+            del pred
+            f32 = surface_predictor(path, torch.float32, **{name: True}).predict(*req100)
+            delta = angular_error_numpy(got, f32)
+            log(f"{name} predictor: 100 pairs, {counts['fusion']} wgmma fuser launches; bf16 against f32 mean "
+                f"{delta.mean():.4f} max {delta.max():.4f} deg (bar: mean 0.1)")
+            if got.shape != (100, 2) or not np.all(np.isfinite(got)) or not delta.mean() <= 0.1:
+                raise RuntimeError(f"{name} predictor: shape {got.shape}, bf16 against f32 {delta.mean()} deg")
+            out["ablations"][name] = {"fuser_launches": counts["fusion"], "bf16_vs_f32_mean_deg": float(delta.mean()),
+                                      "bf16_vs_f32_max_deg": float(delta.max())}
+            torch.cuda.empty_cache()
+
+        part("ablations")
+        # (b) the V-view predictor at V=3, and at V=2 against the stereo one
+        rng = np.random.default_rng(12)
+        reqv = (rng.integers(0, 256, (100, 3, 224, 224, 3), dtype=np.uint8),
+                rng.uniform(-0.6, 0.6, (100, 3, 2)).astype(np.float32))
+        mv = MultiViewGazePredictor(stereo_ckpt, num_views=3, backbone_depth=50, num_iter=3, micro_batch=PAIRS,
+                                    image_size=224, dtype=torch.bfloat16, device="cuda")
+        mv.warmup()
+        got_v, counts, by_variant, _ = counted(fusion, batchnorm, lambda: mv.predict(*reqv))
+        check_served("V=3 predictor", counts, by_variant, 0, micro_batches)
+        if got_v.shape != (100, 2) or not np.all(np.isfinite(got_v)):
+            raise RuntimeError(f"V=3 predictor: {got_v.shape}")
+        st32 = surface_predictor(stereo_ckpt, torch.float32)
+        mv2 = MultiViewGazePredictor(stereo_ckpt, num_views=2, backbone_depth=50, num_iter=3, micro_batch=PAIRS,
+                                     image_size=224, dtype=torch.float32, device="cuda")
+        pair = requests([PAIRS], seed=13)[0]
+        v2 = angular_error_numpy(mv2.predict(np.stack(pair[:2], 1), np.stack(pair[2:], 1)), st32.predict(*pair))
+        del mv2
+        log(f"V=3 predictor: 100 samples, no fuser launch; V=2 against the stereo predictor (f32): max "
+            f"{v2.max():.3e} deg (bar 1e-3)")
+        if not v2.max() <= 1e-3:
+            raise RuntimeError(f"V=2 predictor is {v2.max()} deg from the stereo predictor")
+        out["multiview"] = {"v2_max_delta_deg": float(v2.max())}
+
+        part("multiview")
+        # (c) a 448x448 request against the same images resized on the CPU
+        rng = np.random.default_rng(14)
+        big = (rng.integers(0, 256, (PAIRS, 448, 448, 3), dtype=np.uint8),
+               rng.integers(0, 256, (PAIRS, 448, 448, 3), dtype=np.uint8),
+               rng.uniform(-0.6, 0.6, (PAIRS, 2)).astype(np.float32), rng.uniform(-0.6, 0.6, (PAIRS, 2)).astype(np.float32))
+        served = st32.predict(*big)
+        data = {f"img_{v}": eval_preprocess(torch.from_numpy(big[v]), 224).cuda() for v in (0, 1)}
+        data.update({f"rot_{v}": rotation_matrix_2d(torch.from_numpy(big[2 + v]).cuda()) for v in (0, 1)})
+        with torch.inference_mode():
+            cpu_resized = st32.model(data)["pred_gaze"].float().cpu().numpy()
+        resize = angular_error_numpy(served, cpu_resized)
+        log(f"448x448 request resized on the card against the CPU's resize: mean {resize.mean():.3e} max "
+            f"{resize.max():.3e} deg (bar: mean 0.01)")
+        if not resize.mean() <= 0.01:
+            raise RuntimeError(f"resize on the card is {resize.mean()} deg from the CPU's")
+        out["resize_mean_delta_deg"] = float(resize.mean())
+
+        # (d) int8: every conv shape bit for bit, the GEMM route counted,
+        # features against f32, static calibration saved and reloaded
+        part("resize")
+        p8 = surface_predictor(stereo_ckpt, torch.bfloat16, int8=True)
+        out["int8_conv_shapes"] = check_int8_conv_shapes(p8.model)
+        part("int8_conv_shapes")
+        p8.warmup()
+        got8, counts, by_variant, n_gemm = counted(fusion, batchnorm, lambda: p8.predict(*req100))
+        check_served("int8 predictor", counts, by_variant, 6, micro_batches, n_gemm, R50_CONVS)
+        add(counts, by_variant)
+        log(f"int8 predictor: 100 pairs, {n_gemm} int8 GEMMs ({R50_CONVS} per micro-batch), {counts['fusion']} "
+            f"wgmma fuser launches")
+        test_ds = InMemoryGazeDataset(1, n_frames=4, image_size=224, seed=100, learnable=True)
+        samples = [test_ds[i] for i in range(len(test_ds))]
+        subject = tuple(np.stack([s[k] for s in samples]) if k.startswith("img")
+                        else np.stack([s[k] for s in samples]).astype(np.float32) for k in EVAL_KEYS)
+        gt = np.stack([s["gt_gaze"] for s in samples])
+        p8_32 = surface_predictor(stereo_ckpt, torch.float32, int8=True)
+        with torch.inference_mode():
+            imgs = eval_preprocess(torch.from_numpy(subject[0]).cuda(), 224)
+            f = st32.model._feat_extractor(imgs).double().cpu().numpy()
+            q = p8_32.model._feat_extractor(imgs).double().cpu().numpy()
+        rel = np.linalg.norm(q - f, axis=1) / np.linalg.norm(f, axis=1)
+        cos = (f * q).sum(1) / (np.linalg.norm(f, axis=1) * np.linalg.norm(q, axis=1))
+        log(f"int8 backbone features against f32 over {len(f)} images: relative error mean {rel.mean():.5f} "
+            f"max {rel.max():.5f} (bar mean 0.05), cosine mean {cos.mean():.6f} (bar 0.999)")
+        if not (rel.mean() <= 0.05 and cos.mean() >= 0.999):
+            raise RuntimeError(f"int8 features: relative error {rel.mean()}, cosine {cos.mean()}")
+        out["int8_features"] = {"rel_err_mean": float(rel.mean()), "rel_err_max": float(rel.max()),
+                                "cos_mean": float(cos.mean())}
+        del p8_32, st32
+        calib = os.path.join(tmp, "calibration.msgpack")
+        ps = surface_predictor(stereo_ckpt, torch.bfloat16, int8="static", calibration_path=calib)
+        ps.warmup()
+        ps.calibrate(*subject)
+        if not os.path.exists(calib):
+            raise RuntimeError("static int8: calibrate() wrote no calibration file")
+        ps2 = surface_predictor(stereo_ckpt, torch.bfloat16, int8="static", calibration_path=calib)
+        if not ps2._calibrated or not np.array_equal(ps2.predict(*subject), ps.predict(*subject)):
+            raise RuntimeError("static int8: the reloaded calibration predicts otherwise")
+        del ps2
+        pbf16 = surface_predictor(stereo_ckpt, torch.bfloat16)
+        pbf16.warmup()
+        errors = {name: float(angular_error_numpy(p.predict(*subject), gt).mean())
+                  for name, p in (("bf16", pbf16), ("int8_dynamic", p8), ("int8_static", ps))}
+        shifts = {k: abs(errors[k] - errors["bf16"]) for k in ("int8_dynamic", "int8_static")}
+        log(f"test subject ({len(gt)} pairs): error bf16 {errors['bf16']:.4f}, int8 dynamic "
+            f"{errors['int8_dynamic']:.4f}, int8 static {errors['int8_static']:.4f} deg; shifts {shifts} "
+            f"(tripwire 3.0); the reloaded calibration predicts bit for bit")
+        if not max(shifts.values()) <= 3.0:
+            raise RuntimeError(f"int8 shifts the metric by {shifts} deg")
+        out["metric_deg"] = errors
+        out["int8_metric_shift_deg"] = shifts
+
+        part("int8")
+        # (f) serving numbers, same requests, host clock
+        req64 = requests([PAIRS], seed=16)[0]
+        out["serving"] = {name: time_serving(p, req64, n_iter=10)
+                          for name, p in (("bf16", pbf16), ("int8_dynamic", p8), ("int8_static", ps))}
+        log(f"serving at micro-batch 64: {out['serving']}")
+        out["profiles"] = {name: profile_serving(p, req64)
+                           for name, p in (("bf16", pbf16), ("int8_dynamic", p8), ("int8_static", ps))}
+        for name, prof in out["profiles"].items():
+            log(f"{name} serving profile: busy {prof['device_busy_ms_per_request']:.3f} of "
+                f"{prof['window_ms_per_request']:.3f} ms per request; by class "
+                f"{ {k: round(v, 3) for k, v in prof['device_ms_per_request_by_class'].items()} }")
+
+        part("serving_numbers")
+        # (e) export: bf16, dynamic int8 and V=3 bf16, served with the checkpoint
+        out["artifacts"] = {}
+        for name, live, reqs, nv in (("bf16", pbf16, req100, None), ("int8_dynamic", p8, req100, None),
+                                     ("v3_bf16", mv, reqv, 3)):
+            path = os.path.join(tmp, f"{name}.pt2")
+            t0 = time.perf_counter()
+            export_serving_artifact(live.model, path, micro_batch=PAIRS, image_size=224, num_views=nv)
+            export_s = time.perf_counter() - t0
+            aot = AotGazePredictor(path, stereo_ckpt)
+            aot.predict(*(a[:1] for a in reqs))
+            got_a, counts, by_variant, _ = counted(fusion, batchnorm, lambda: aot.predict(*reqs))
+            check_served(f"{name} artifact", counts, by_variant, 0 if nv else 6, micro_batches)
+            add(counts, by_variant)
+            want = live.predict(*reqs)
+            delta = angular_error_numpy(got_a, want)
+            exact = bool(np.array_equal(got_a, want))
+            size = os.path.getsize(path)
+            log(f"{name} artifact: {size} bytes, exported in {export_s:.1f} s; {counts['fusion']} wgmma fuser "
+                f"launches from the program; against the live predictor {'bit for bit' if exact else ''} max "
+                f"{delta.max():.3e} deg (bar 1e-6)")
+            if not (exact or delta.max() <= 1e-6):
+                raise RuntimeError(f"{name} artifact predicts {delta.max()} deg from the live predictor")
+            out["artifacts"][name] = {"bytes": size, "export_s": export_s, "bit_for_bit": exact,
+                                      "max_delta_deg": float(delta.max()), "fuser_launches": counts["fusion"]}
+            del aot
+        del pbf16, p8, ps, mv
+        torch.cuda.empty_cache()
+        part("export")
+    out["seconds_by_part"] = parts
+    out["max_memory_allocated_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serving surface phase: peak {out['max_memory_allocated_mb']:.0f} MiB, {out['seconds']:.1f} s "
+        f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return {"launches": fuser_launches, "by_variant": fuser_by_variant, "numbers": out}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -2073,8 +2398,10 @@ def run_turn(tree: str, shapes_file: str) -> dict:
     """One turn, in a child process: import ``tree``'s port, build its
     kernels and time the fuser at the serving shape (time_cuda, W1 from
     HBM), each kernel of TURN_KERNELS over the step's 106 BN calls
-    (device_ms), on the inputs of time_fusion and time_bn, and the conv
-    kernel at the probe's shape (time_cuda on conv_probe_case's inputs)."""
+    (device_ms), on the inputs of time_fusion and time_bn, the conv
+    kernel at the probe's shape (time_cuda on conv_probe_case's inputs),
+    and ``tree``'s bf16 GazePredictor at micro-batch 64 (phase 4's
+    checkpoint and time_serving)."""
     sys.path.insert(0, tree)
     from rot_mvgaze_tpu_torch.kernels import build
     from rot_mvgaze_tpu_torch.ops import batchnorm, conv_bn, fusion
@@ -2092,6 +2419,16 @@ def run_turn(tree: str, shapes_file: str) -> dict:
     del calls
     torch.cuda.empty_cache()
     record["conv_probe_kernel_ms"] = time_cuda(conv_probe_case(conv_bn), n_iter=50, n_warm=3)
+    torch.cuda.empty_cache()
+    from rot_mvgaze_tpu_torch.serving import GazePredictor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "r50_seed0.pth.tar")
+        make_checkpoint(ckpt)
+        pred = GazePredictor(ckpt, backbone_depth=50, num_iter=3, micro_batch=PAIRS, image_size=224,
+                             dtype=torch.bfloat16, device="cuda")
+        pred.warmup()
+        record.update(time_serving(pred, requests([PAIRS], seed=3)[0]))
     return record
 
 
@@ -2192,6 +2529,8 @@ def main(argv=None) -> int:
     cli = run_cli_phase(fusion, batchnorm, trained["imgs_per_s"])
     torch.cuda.empty_cache()
     family = run_family_phase(fusion, batchnorm, bn_timing, trainer["checkpoint"])
+    torch.cuda.empty_cache()
+    surface = run_serving_surface_phase(fusion, batchnorm, trainer["checkpoint"])
     keep.cleanup()
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
@@ -2200,6 +2539,7 @@ def main(argv=None) -> int:
     print(json.dumps({"trainer": trainer["numbers"], **tag}), flush=True)
     print(json.dumps({"cli": cli["numbers"], **tag}), flush=True)
     print(json.dumps({"model_family": family["numbers"], **tag}), flush=True)
+    print(json.dumps({"serving_surface": surface["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -2231,6 +2571,16 @@ def main(argv=None) -> int:
         ("family_max_memory_allocated_mb", family["numbers"]["max_memory_allocated_mb"], "MiB"),
         ("family_phase_seconds", family["numbers"]["seconds"], "s"),
     ] + [
+        (f"surface_serve_{k}_{name}", v, unit)
+        for name, t in surface["numbers"]["serving"].items()
+        for k, v, unit in (("imgs_per_s", t["serve_imgs_per_s"], "images/s at micro-batch 64, R50 x 3, host clock"),
+                           ("p50_ms", t["serve_p50_ms"], "ms per 64-pair request"))
+    ] + [
+        (f"surface_artifact_bytes_{name}", a["bytes"], "bytes") for name, a in surface["numbers"]["artifacts"].items()
+    ] + [
+        ("surface_max_memory_allocated_mb", surface["numbers"]["max_memory_allocated_mb"], "MiB"),
+        ("surface_phase_seconds", surface["numbers"]["seconds"], "s"),
+    ] + [
         (f"{kind}_ms_per_{name}_update", rec["ms"], "ms over the update's 53 calls")
         for name, t in family["numbers"]["bn_ms_per_update"].items() for kind, rec in t.items()
     ] + [
@@ -2243,13 +2593,13 @@ def main(argv=None) -> int:
     kernels = [{
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
-                    + cli["launches"]["fusion"] + family["launches"]["fusion"],
+                    + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
-                             "model_family": family["launches"]["fusion"]},
+                             "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"]},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
-                                for k in fusion.VARIANTS},
+                                + surface["by_variant"][k] for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

@@ -14,5 +14,8 @@ forward, ``losses``, Adam), with train-mode BatchNorm as four hand-written
 CUDA kernels (``ops.batchnorm``, ``csrc/batchnorm.cu``) and the fuser's
 backward; and the training runtime around the step, single process: the
 data tier (``data``), the step's options, evaluation (``evaluate``),
-checkpoints and ``train.Trainer``.
+checkpoints and ``train.Trainer``; the command line, the model family;
+and the single-card serving and export surface (the antialiased resize,
+every ablation and the V-view model behind ``serving``, int8 serving in
+``ops.quant``, ``torch.export`` artifacts in ``export``).
 """

@@ -2,8 +2,7 @@
 ``rot_mvgaze_tpu/augment/ops.py``).
 
 Images stay NHWC here, as at the JAX package's public functions; the
-backbone permutes them into an NCHW view with channels_last strides. The
-antialiased resize is not ported yet: only the identity resize runs.
+backbone permutes them into an NCHW view with channels_last strides.
 
 The train stack draws each sample's parameters in bulk from an explicit
 ``torch.Generator`` on the images' device and applies them to the whole
@@ -42,17 +41,37 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
     return img * inv_std - shift
 
 
+def _resize_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """(in_size, out_size) float32 weights of the antialiased triangle
+    filter, as ``jax.image.scale_and_translate`` builds them (translation 0):
+    when downsampling the kernel widens by ``in/out``, each output column is
+    normalised to sum to 1, and samples outside the input get 0."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = torch.clamp(1 - torch.abs(sample[None, :] - src[:, None]) / kernel_scale, min=0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
 def resize_bilinear(img: torch.Tensor, size: int) -> torch.Tensor:
-    """Resize of (..., H, W, C) to (..., size, size, C): the identity when the
-    input already has that size. Any other size raises, because
-    ``F.interpolate(antialias=True)`` does not reproduce the JAX package's
-    ``jax.image.resize`` (``tests/test_resize_parity.py``)."""
-    if tuple(img.shape[-3:-1]) == (size, size):
+    """Antialiased bilinear resize of (..., H, W, C) to (..., size, size, C),
+    the JAX package's ``jax.image.resize(method="linear", antialias=True)``:
+    each axis whose size changes is contracted with :func:`_resize_weights`
+    (cast to the image's dtype), H first, then W. An input already at
+    ``size`` x ``size`` comes back as it is."""
+    h, w = img.shape[-3], img.shape[-2]
+    if (h, w) == (size, size):
         return img
-    raise ValueError(
-        f"images must be {size}x{size}, got {tuple(img.shape[-3:-1])}: the "
-        f"antialiased resize is not ported yet"
-    )
+    if h != size:
+        img = torch.einsum("...hwc,hy->...ywc", img, _resize_weights(h, size, img.device).to(img.dtype))
+    if w != size:
+        img = torch.einsum("...wc,wx->...xc", img, _resize_weights(w, size, img.device).to(img.dtype))
+    return img.contiguous()
 
 
 def eval_preprocess(img_u8: torch.Tensor, image_size: int = 224) -> torch.Tensor:

@@ -137,6 +137,14 @@ def rot_mv_entries(
     return entries
 
 
+def conv_entries(backbone_depth: Any = 50) -> List[Entry]:
+    """The backbone's convolutions in every model's key map: where a conv's
+    int8 activation range lives in both packages (``<torch_key>.act_amax``
+    here, ``quant/<jax_path>/act_amax`` in the JAX package's calibration
+    files)."""
+    return [e for e in _resnet_entries(backbone_depth, "_feat_extractor.0.", ("backbone",)) if e.kind == "conv"]
+
+
 def _lookup(tree: Mapping[str, Any], path: Sequence[str]) -> np.ndarray:
     node: Any = tree
     for p in path:

@@ -18,10 +18,16 @@ Leaves come back as numpy arrays and scalars, except a ``bfloat16`` array,
 which numpy cannot hold: it comes back as a ``torch.bfloat16`` tensor of the
 same raw bytes. Unknown extension types and malformed or truncated input
 raise ``ValueError``.
+
+:func:`dumps` and :func:`dump` write the same format (what
+``flax.serialization.to_bytes`` writes for a tree of string-keyed maps,
+arrays and scalars), each object in its shortest form; arrays are written
+whole, which is what flax does below its chunk size.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Tuple
 
@@ -190,3 +196,119 @@ def looks_like_msgpack_map(head: bytes) -> Tuple[bool, str]:
     if 0xA0 <= b1 <= 0xBF or b1 in (0xD9, 0xDA, 0xDB):
         return True, ""
     return False, f"second byte 0x{b1:02x} does not start a string key"
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes: Tuple[int, ...]) -> None:
+    """A container or string header: the fix form below ``fix_max``, else
+    the 8-bit (when ``codes`` has three), 16-bit or 32-bit length form."""
+    if n < fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt in zip(codes, (">B", ">H", ">I")[-len(codes):]):
+        if n < 256 ** struct.calcsize(fmt):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack object of {n} entries or bytes is too long")
+
+
+def _ndarray_payload(arr: Any) -> bytes:
+    """The ndarray extension's packed ``(shape, dtype name, C-order
+    bytes)``."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().contiguous()
+        if arr.dtype == torch.bfloat16:
+            return dumps([list(arr.shape), "bfloat16", arr.view(torch.int16).numpy().tobytes()])
+        arr = arr.numpy()
+    arr = np.asarray(arr, order="C")  # (ascontiguousarray would make a 0-d array 1-d)
+    return dumps([list(arr.shape), arr.dtype.name, arr.tobytes()])
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    n = len(payload)
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        for head, fmt in ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")):
+            if n < 256 ** struct.calcsize(fmt):
+                out.append(head)
+                out += struct.pack(fmt, n)
+                break
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+            return
+        forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if obj >= 0 else \
+            ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+        for code, fmt in forms:
+            try:
+                packed = struct.pack(fmt, obj)
+            except struct.error:
+                continue
+            out.append(code)
+            out += packed
+            return
+        raise ValueError(f"integer {obj} does not fit in 64 bits")
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(out, len(data), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, (0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, (0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} as msgpack")
+
+
+def dumps(tree: Any) -> bytes:
+    """The msgpack bytes of ``tree`` (maps, lists, strings, bytes, numbers,
+    None, numpy arrays and scalars, tensors), as flax writes them."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+def dump(path: str, tree: Any) -> str:
+    """Write :func:`dumps` of ``tree`` to ``path`` atomically (a temporary
+    file in the same directory, synced, then renamed over it, as the JAX
+    package's ``save_state``); returns the absolute path."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(dumps(tree))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path

@@ -10,24 +10,107 @@ is never called and is kept only so that ``load_state_dict(strict=True)``
 accepts a reference checkpoint. Every BatchNorm is a ``BatchNormAct`` that
 applies its own ReLU, and a block's last one also adds the residual, as the
 JAX package's ``ConvBN`` does: in train mode that is one fused op
-(``ops/batchnorm.py``), in eval ``nn.BatchNorm2d`` then add then ReLU. int8,
-remat and spatial partitioning are not ported.
+(``ops/batchnorm.py``), in eval ``nn.BatchNorm2d`` then add then ReLU.
+``int8`` makes every conv a :class:`QuantConv2d` (eval only; the state dict
+is the float model's). Remat and spatial partitioning are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Type, Union
+import contextlib
+from typing import Any, Iterator, Optional, Sequence, Type, Union
 
 import torch
 from torch import nn
 
 from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+from rot_mvgaze_tpu_torch.ops import quant
+
+INT8_MODES = (False, True, "static")
+# the frozen static scale's range when a conv was never calibrated, as the
+# JAX package's QuantConv: post-BN/ReLU activations rarely exceed |8|
+UNCALIBRATED_AMAX = 8.0
 
 
-def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(
-        in_ch, out_ch, k, stride=stride, padding=k // 2, groups=groups, bias=False
-    )
+class QuantConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state-dict keys) whose eval
+    forward runs :func:`rot_mvgaze_tpu_torch.ops.quant.int8_conv`: weights
+    per output channel, int32 accumulation, out in the input's dtype. Train
+    mode is the float conv.
+
+    ``int8=True`` scales activations dynamically. ``int8="static"`` keeps
+    the running max of ``|x|`` in the non-persistent buffer ``act_amax``
+    (not in the state dict): while ``calibrating`` is set, passes record
+    the range and quantize dynamically; otherwise the scale is
+    ``act_amax / 127``, or ``8 / 127`` while ``act_amax`` is 0. The
+    quantized weight is cached per weight version and device; a traced
+    call (``torch.export``) quantizes in the graph."""
+
+    def __init__(self, *args: Any, int8: Any = True, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        if int8 not in (True, "static"):
+            raise ValueError(f"QuantConv2d int8 must be True or 'static', got {int8!r}")
+        self.int8 = int8
+        self.calibrating = False
+        if int8 == "static":
+            self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32), persistent=False)
+        self._wq: Any = None
+
+    def _apply(self, fn, recurse=True):
+        # the range stays float32 (as the JAX package's) when the module is
+        # cast to a compute dtype
+        amax = getattr(self, "act_amax", None)
+        super()._apply(fn, recurse)
+        if amax is not None:
+            self.act_amax = amax.to(device=self.act_amax.device, dtype=torch.float32)
+        return self
+
+    def _quantized_weight(self):
+        w = self.weight
+        if torch.compiler.is_compiling() or type(w) not in (torch.Tensor, nn.Parameter):
+            return quant.quantize_conv_weight(w)
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._wq is None or self._wq[0] != key:
+            with torch.no_grad():
+                self._wq = (key, quant.quantize_conv_weight(w))
+        return self._wq[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        act_scale = None
+        if self.int8 == "static":
+            if self.calibrating:
+                with torch.no_grad():
+                    torch.maximum(self.act_amax, x.detach().float().abs().amax(), out=self.act_amax)
+            else:
+                amax = torch.where(self.act_amax > 0, self.act_amax, UNCALIBRATED_AMAX)
+                act_scale = amax / 127.0
+        return quant.int8_conv(x, self.weight, self.stride, self.padding, self.groups,
+                               act_scale=act_scale, quantized_weight=self._quantized_weight())
+
+
+@contextlib.contextmanager
+def calibrating(model: nn.Module) -> Iterator[None]:
+    """Static int8 calibration passes: every :class:`QuantConv2d` of
+    ``model`` records its input range and quantizes dynamically."""
+    convs = [m for m in model.modules() if isinstance(m, QuantConv2d)]
+    for m in convs:
+        m.calibrating = True
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.calibrating = False
+
+
+def _conv(
+    in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1, int8: Any = False
+) -> nn.Conv2d:
+    kwargs = dict(stride=stride, padding=k // 2, groups=groups, bias=False)
+    if int8:
+        return QuantConv2d(in_ch, out_ch, k, int8=int8, **kwargs)
+    return nn.Conv2d(in_ch, out_ch, k, **kwargs)
 
 
 class BasicBlock(nn.Module):
@@ -43,6 +126,7 @@ class BasicBlock(nn.Module):
         downsample: Optional[nn.Module] = None,
         groups: int = 1,
         base_width: int = 64,
+        int8: Any = False,
     ) -> None:
         super().__init__()
         if groups != 1 or base_width != 64:
@@ -50,9 +134,9 @@ class BasicBlock(nn.Module):
                 "BasicBlock only supports groups=1 and base_width=64; "
                 f"got groups={groups}, base_width={base_width}"
             )
-        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.conv1 = _conv(inplanes, planes, 3, stride, int8=int8)
         self.bn1 = BatchNormAct(planes, relu=True)
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv(planes, planes, 3, int8=int8)
         self.bn2 = BatchNormAct(planes, relu=True)  # + residual, then ReLU
         self.downsample = downsample
 
@@ -75,14 +159,15 @@ class Bottleneck(nn.Module):
         downsample: Optional[nn.Module] = None,
         groups: int = 1,
         base_width: int = 64,
+        int8: Any = False,
     ) -> None:
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = _conv(inplanes, width, 1)
+        self.conv1 = _conv(inplanes, width, 1, int8=int8)
         self.bn1 = BatchNormAct(width, relu=True)
-        self.conv2 = _conv(width, width, 3, stride, groups)
+        self.conv2 = _conv(width, width, 3, stride, groups, int8=int8)
         self.bn2 = BatchNormAct(width, relu=True)
-        self.conv3 = _conv(width, planes * self.expansion, 1)
+        self.conv3 = _conv(width, planes * self.expansion, 1, int8=int8)
         self.bn3 = BatchNormAct(planes * self.expansion, relu=True)  # + residual, then ReLU
         self.downsample = downsample
 
@@ -94,7 +179,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet backbone over NHWC input returning pooled features (B, C)."""
+    """ResNet backbone over NHWC input returning pooled features (B, C).
+    ``int8`` (False, True or "static") selects the eval convs
+    (:class:`QuantConv2d`)."""
 
     def __init__(
         self,
@@ -103,9 +190,13 @@ class ResNet(nn.Module):
         groups: int = 1,
         width_per_group: int = 64,
         num_classes: int = 1000,
+        int8: Any = False,
     ) -> None:
         super().__init__()
-        self.conv1 = _conv(3, 64, 7, 2)
+        if int8 not in INT8_MODES:
+            raise ValueError(f"int8 must be one of {INT8_MODES}, got {int8!r}")
+        self.int8 = int8
+        self.conv1 = _conv(3, 64, 7, 2, int8=int8)
         self.bn1 = BatchNormAct(64, relu=True)
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
         inplanes = 64
@@ -119,11 +210,11 @@ class ResNet(nn.Module):
                 downsample = None
                 if block_i == 0 and (s != 1 or inplanes != planes * block.expansion):
                     downsample = nn.Sequential(
-                        _conv(inplanes, planes * block.expansion, 1, s),
+                        _conv(inplanes, planes * block.expansion, 1, s, int8=int8),
                         BatchNormAct(planes * block.expansion),
                     )
                 blocks.append(
-                    block(inplanes, planes, s, downsample, groups, width_per_group)
+                    block(inplanes, planes, s, downsample, groups, width_per_group, int8)
                 )
                 inplanes = planes * block.expansion
             setattr(self, f"layer{stage_i + 1}", nn.Sequential(*blocks))
@@ -141,40 +232,40 @@ class ResNet(nn.Module):
         return x.mean(dim=(2, 3))
 
 
-def resnet18() -> ResNet:
-    return ResNet(BasicBlock, (2, 2, 2, 2))
+def resnet18(**kwargs: Any) -> ResNet:
+    return ResNet(BasicBlock, (2, 2, 2, 2), **kwargs)
 
 
-def resnet34() -> ResNet:
-    return ResNet(BasicBlock, (3, 4, 6, 3))
+def resnet34(**kwargs: Any) -> ResNet:
+    return ResNet(BasicBlock, (3, 4, 6, 3), **kwargs)
 
 
-def resnet50() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3))
+def resnet50(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 6, 3), **kwargs)
 
 
-def resnet101() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 23, 3))
+def resnet101(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), **kwargs)
 
 
-def resnet152() -> ResNet:
-    return ResNet(Bottleneck, (3, 8, 36, 3))
+def resnet152(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 8, 36, 3), **kwargs)
 
 
-def resnext50_32x4d() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3), groups=32, width_per_group=4)
+def resnext50_32x4d(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 6, 3), groups=32, width_per_group=4, **kwargs)
 
 
-def resnext101_32x8d() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 23, 3), groups=32, width_per_group=8)
+def resnext101_32x8d(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), groups=32, width_per_group=8, **kwargs)
 
 
-def wide_resnet50_2() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3), width_per_group=128)
+def wide_resnet50_2(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 6, 3), width_per_group=128, **kwargs)
 
 
-def wide_resnet101_2() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 23, 3), width_per_group=128)
+def wide_resnet101_2(**kwargs: Any) -> ResNet:
+    return ResNet(Bottleneck, (3, 4, 23, 3), width_per_group=128, **kwargs)
 
 
 BACKBONES = {

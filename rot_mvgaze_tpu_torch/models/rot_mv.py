@@ -160,6 +160,10 @@ class FeatRotationSymm(nn.Module):
     once. In eval both views always run as one batch (BN then uses running
     statistics, so this changes nothing but the batch size).
 
+    ``int8_backbone`` (False, True or "static") runs the backbone's convs
+    on the int8 path in eval (``models/resnet.py::QuantConv2d``); the state
+    dict is unchanged.
+
     ``share_weights`` reuses one fuser and one head across iterations,
     aliased as the reference does (``ModuleList([m] * n)``). The fuser
     kernel runs on the default path only; the ablations' fusers are plain
@@ -179,6 +183,7 @@ class FeatRotationSymm(nn.Module):
         ignore_rotmat: bool = False,
         num_feat_vec: int = NUM_FEAT_VEC,
         fuse_views: bool = False,
+        int8_backbone: Any = False,
     ) -> None:
         super().__init__()
         if ignore_rotmat and encode_rotmat:
@@ -196,7 +201,8 @@ class FeatRotationSymm(nn.Module):
         self.ignore_rotmat = ignore_rotmat
         self.num_feat_vec = num_feat_vec
         self.fuse_views = fuse_views
-        backbone = BACKBONES[backbone_depth]()
+        self.int8_backbone = int8_backbone
+        backbone = BACKBONES[backbone_depth](int8=int8_backbone)
         fc_dim = backbone.feature_dim
         self._feat_extractor = nn.Sequential(backbone)
         self._lifter = Feat3dLifter(fc_dim, num_feat_vec)

@@ -16,10 +16,14 @@ reduced in a thread block cluster) and ``generic`` (``csrc/fusion.cu``:
 float32 on the FMA units, and bf16 shapes the first does not take, on
 ``wmma`` with split-K through a global f32 workspace). It never falls back:
 a CUDA call launches the chosen kernel or raises.
-:class:`RotateConcatMatmulRelu` makes it differentiable: its forward is that
-wrapper, its backward the JAX package's ``custom_vjp`` backward (plain
-products, as JAX leaves them to XLA). ``fused_image_feat_fuser`` adds layer 2
-as a plain ``F.linear``. Weights are
+:func:`rotate_concat_matmul_relu_op` registers that wrapper as the
+operator ``mvgaze::rotate_concat_matmul_relu`` (``torch.library.custom_op``
+with a shape function), so ``torch.export`` records one node that calls the
+wrapper when the program runs; loading such a program needs this module
+imported. :class:`RotateConcatMatmulRelu` makes it differentiable: its
+forward is that operator, its backward the JAX package's ``custom_vjp``
+backward (plain products, as JAX leaves them to XLA).
+``fused_image_feat_fuser`` adds layer 2 as a plain ``F.linear``. Weights are
 used as ``nn.Linear`` stores them, ``(out, in)``. Unlike the JAX wrapper,
 the batch is not padded: the kernel masks ragged edges itself.
 """
@@ -272,6 +276,25 @@ rotate_concat_matmul_relu.launches = 0
 rotate_concat_matmul_relu.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
+@torch.library.custom_op("mvgaze::rotate_concat_matmul_relu", mutates_args=())
+def rotate_concat_matmul_relu_op(
+    img_feat: torch.Tensor,
+    rot_feat: torch.Tensor,
+    rot: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`rotate_concat_matmul_relu` as one operator (looked up when
+    called, so a swap of the module's function reaches it too)."""
+    return rotate_concat_matmul_relu(img_feat, rot_feat, rot, w1, b1)
+
+
+@rotate_concat_matmul_relu_op.register_fake
+def _(img_feat, rot_feat, rot, w1, b1):
+    b, _, _, h = _check_inputs(img_feat, rot_feat, rot, w1, b1)
+    return img_feat.new_empty((b, h))
+
+
 class RotateConcatMatmulRelu(torch.autograd.Function):
     """Differentiable :func:`rotate_concat_matmul_relu`.
 
@@ -286,7 +309,7 @@ class RotateConcatMatmulRelu(torch.autograd.Function):
     def forward(ctx, img_feat, rot_feat, rot, w1, b1):
         # autocast off: the op sets its dtypes at its own boundary
         with torch.autocast(img_feat.device.type, enabled=False):
-            h = rotate_concat_matmul_relu(img_feat, rot_feat, rot, w1, b1)
+            h = rotate_concat_matmul_relu_op(img_feat, rot_feat, rot, w1, b1)
         ctx.save_for_backward(img_feat, rot_feat, rot, w1, h)
         return h
 
@@ -326,8 +349,13 @@ def fused_image_feat_fuser(
     w2: torch.Tensor,
     b2: torch.Tensor,
 ) -> torch.Tensor:
-    """Full two-layer ImageFeatFuser: layer 1 above (differentiable), then
-    ``F.linear(h, w2, b2)`` (a plain product, as the JAX package left it to
-    XLA)."""
-    h = RotateConcatMatmulRelu.apply(img_feat, rot_feat, rot, w1, b1)
+    """Full two-layer ImageFeatFuser: layer 1 above, then ``F.linear(h, w2,
+    b2)`` (a plain product, as the JAX package left it to XLA). Layer 1 is
+    :class:`RotateConcatMatmulRelu` where a gradient is needed, else the
+    operator alone (what ``torch.export`` records)."""
+    args = (img_feat, rot_feat, rot, w1, b1)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        h = RotateConcatMatmulRelu.apply(*args)
+    else:
+        h = rotate_concat_matmul_relu_op(*args)
     return F.linear(h, w2, b2)

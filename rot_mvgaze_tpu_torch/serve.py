@@ -1,14 +1,25 @@
-"""HTTP inference server for the two-view gaze model on the card (port of
+"""HTTP inference server for the gaze models on the card (port of
 ``scripts/serve.py``).
 
     python -m rot_mvgaze_tpu_torch.serve --ckpt model.pth.tar [--port 8347] \
-        [--backbone_depth 50 --num_iter 3 --micro_batch 64 --f32]
+        [--backbone_depth 50 --num_iter 3 --micro_batch 64 --f32] \
+        [--share_weights | --ignore_rotmat | --encode_rotmat | --share_feature] \
+        [--num_views V] [--int8 | --int8_static [--calibration ranges.msgpack]]
 
 API:
   GET  /healthz   -> {"status": "ok", "requests": ..., "samples": ..., ...}
   POST /predict   body: npz with img_0, img_1 (N,H,W,3 uint8),
                   head_pose_0, head_pose_1 (N,2 float32)
                   -> npz with pred_gaze (N,2 float32 pitchyaw)
+
+With ``--num_views V`` (V > 2) the server runs the V-view model and
+/predict takes ``imgs`` (N,V,H,W,3 uint8) and ``head_poses`` (N,V,2); a
+stereo checkpoint loads at any V. ``--int8`` runs the backbone's convs on
+int8 with dynamic activation scales, ``--int8_static`` with calibrated ones
+(calibrated on the first request, or loaded from ``--calibration`` and
+saved there after the first calibration). ``--dp`` and
+``--spatial_partition > 1`` (serving over several cards) are not ported
+(ROADMAP A13): the server exits before it loads anything.
 
 A malformed request gets 400, a body over the size cap 413, a failure of
 the server 500.
@@ -23,10 +34,12 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional
 
 import numpy as np
 
-# request-body cap: generous for batch-256 224^2 two-view uint8 (~80 MB)
+# request-body cap per view pair: generous for batch-256 224^2 two-view
+# uint8 (~80 MB); a V-view server scales it by ceil(V/2)
 MAX_BODY_BYTES = 256 * 1024 * 1024
 
 
@@ -106,45 +119,103 @@ def build_handler(predictor, stats, max_body_bytes=MAX_BODY_BYTES):
     return Handler
 
 
-def main() -> int:
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--ckpt", required=True, help="reference-format .pth.tar")
+    p.add_argument("--ckpt", required=True,
+                   help="a reference .pth.tar, the port's checkpoint or a JAX .msgpack")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8347)
     p.add_argument("--backbone_depth", default="50",
                    help="ResNet depth or a variant name (resnext50_32x4d, ...)")
     p.add_argument("--num_iter", type=int, default=3)
-    p.add_argument("--share_weights", action="store_true",
-                   help="one fuser/head reused across iterations; must match "
-                        "the checkpoint")
     p.add_argument("--micro_batch", type=int, default=64)
     p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--num_views", type=int, default=2,
+                   help="serve the V-view model (V > 2): /predict takes stacked imgs "
+                        "(N,V,H,W,3) + head_poses (N,V,2); stereo checkpoints load at any V")
+    p.add_argument("--share_weights", action="store_true",
+                   help="one fuser/head reused across iterations; must match the checkpoint")
+    p.add_argument("--ignore_rotmat", action="store_true",
+                   help="the ignore_rotmat ablation; must match the checkpoint")
+    p.add_argument("--encode_rotmat", action="store_true",
+                   help="the encode_rotmat ablation; must match the checkpoint (two-view only)")
+    p.add_argument("--share_feature", action="store_true",
+                   help="the share_feature ablation; must match the checkpoint (two-view only)")
     p.add_argument("--f32", action="store_true", help="float32 compute")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 backbone convs with dynamic activation scales")
+    p.add_argument("--int8_static", action="store_true",
+                   help="int8 backbone convs with calibrated activation scales "
+                        "(calibrated on the first request)")
+    p.add_argument("--calibration", default=None,
+                   help="with --int8_static: the calibration file to load if present and "
+                        "to save after the first calibration")
+    p.add_argument("--dp", action="store_true",
+                   help="not ported (ROADMAP A13): serving over several cards")
+    p.add_argument("--spatial_partition", type=int, default=1,
+                   help="not ported (ROADMAP A13): only 1")
     p.add_argument("--device", default="cuda")
     p.add_argument("--coalesce_ms", type=float, default=2.0,
-                   help="max wait to fill a shared micro-batch from "
-                        "concurrent requests")
-    args = p.parse_args()
+                   help="max wait to fill a shared micro-batch from concurrent requests")
+    return p
+
+
+def refused(args: argparse.Namespace) -> List[str]:
+    """What this server refuses of the parsed flags, before it loads
+    anything: serving over several cards, and for V > 2 the stereo-only
+    ablations, as the JAX package's server does."""
+    bad = [flag for flag, on in (
+        ("--dp (ROADMAP A13)", args.dp),
+        ("--spatial_partition > 1 (ROADMAP A13)", args.spatial_partition > 1),
+    ) if on]
+    if args.num_views < 2:
+        bad.append(f"--num_views {args.num_views} (must be >= 2)")
+    if args.num_views > 2:
+        bad += [f"--num_views {args.num_views} with {flag}" for flag, on in (
+            ("--encode_rotmat", args.encode_rotmat),
+            ("--share_feature", args.share_feature),
+        ) if on]
+    return bad
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = get_parser().parse_args(argv)
+    bad = refused(args)
+    if bad:
+        raise SystemExit(f"not supported: {', '.join(bad)}")
 
     import torch
 
-    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor
+    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor, MultiViewGazePredictor
 
     depth = int(args.backbone_depth) if args.backbone_depth.isdigit() else args.backbone_depth
-    predictor = GazePredictor(
-        args.ckpt,
+    common = dict(
         backbone_depth=depth,
         num_iter=args.num_iter,
         share_weights=args.share_weights,
+        ignore_rotmat=args.ignore_rotmat,
         micro_batch=args.micro_batch,
         image_size=args.image_size,
         dtype=torch.float32 if args.f32 else torch.bfloat16,
+        int8="static" if args.int8_static else args.int8,
+        calibration_path=args.calibration,
         device=args.device,
     )
+    if args.num_views > 2:
+        predictor = MultiViewGazePredictor(args.ckpt, num_views=args.num_views, **common)
+    else:
+        predictor = GazePredictor(
+            args.ckpt, encode_rotmat=args.encode_rotmat, share_feature=args.share_feature, **common
+        )
+    # every path before traffic (static int8: the calibration and the frozen
+    # pass, the noise's ranges discarded)
     predictor.warmup()
     batching = BatchingPredictor(predictor, max_delay_ms=args.coalesce_ms)
     stats = {"requests": 0, "samples": 0, "time": 0.0}
-    server = ThreadingHTTPServer((args.host, args.port), build_handler(batching, stats))
+    max_body = MAX_BODY_BYTES * max(1, (args.num_views + 1) // 2)
+    server = ThreadingHTTPServer(
+        (args.host, args.port), build_handler(batching, stats, max_body_bytes=max_body)
+    )
     print(f"serving on {args.host}:{args.port} (micro_batch={args.micro_batch})", flush=True)
     try:
         server.serve_forever()

@@ -22,10 +22,69 @@ def test_eval_preprocess_equals_jax(size):
     np.testing.assert_allclose(got.numpy(), want, atol=4.8e-7, rtol=0)
 
 
-def test_resize_other_than_identity_raises():
-    img = torch.zeros((1, 48, 48, 3), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="not ported"):
-        eval_preprocess(img, 32)
+# ---------------------------------------------------------------------------
+# antialiased resize against JAX's jax.image.resize(linear, antialias=True):
+# atol 1e-5 on the float resize and 1e-4 on eval_preprocess (the bars of
+# tests/test_resize_parity.py); the identity bit for bit
+# ---------------------------------------------------------------------------
+
+from rot_mvgaze_tpu.augment.ops import resize_bilinear as jax_resize_bilinear  # noqa: E402
+from rot_mvgaze_tpu_torch.augment.ops import _resize_weights, resize_bilinear  # noqa: E402
+
+RESIZE_CASES = [(448, 448), (336, 336), (250, 250), (160, 160), (129, 129), (448, 336), (100, 250),
+                (112, 112)]
+RESIZE_IDS = ["448", "336", "250", "160", "129", "448x336", "100x250", "upscale_112"]
+
+
+@pytest.mark.parametrize("h, w", RESIZE_CASES, ids=RESIZE_IDS)
+def test_resize_equals_jax(h, w):
+    x = np.random.default_rng(h * w).random((2, h, w, 3), dtype=np.float32)
+    got = resize_bilinear(torch.from_numpy(x), 224)
+    assert got.shape == (2, 224, 224, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_resize_bilinear(jnp.asarray(x), 224)), atol=1e-5)
+
+
+@pytest.mark.parametrize("h, w", RESIZE_CASES, ids=RESIZE_IDS)
+def test_eval_preprocess_resizes_as_jax(h, w):
+    img = np.random.default_rng(h + w).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    got = eval_preprocess(torch.from_numpy(img), 224)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_eval_preprocess(jnp.asarray(img), 224)), atol=1e-4)
+
+
+@pytest.mark.parametrize("h, w", [(300, 200), (160, 160), (129, 129), (37, 61)])
+def test_resize_equals_the_float64_weights(h, w):
+    """Against the same separable weights applied in float64: within 1e-6
+    (float32 sums of a few terms). JAX's own CPU resize reads up to 1.3e-5
+    from this at 300x200, above the 1e-5 bar, so that size is held here."""
+    x = np.random.default_rng(7).random((2, h, w, 3), dtype=np.float32)
+    wh = _resize_weights(h, 224, torch.device("cpu")).double().numpy()
+    ww = _resize_weights(w, 224, torch.device("cpu")).double().numpy()
+    want = np.einsum("bhwc,hy,wx->byxc", x.astype(np.float64), wh, ww)
+    np.testing.assert_allclose(resize_bilinear(torch.from_numpy(x), 224).numpy(), want, atol=1e-6)
+
+
+def test_resize_identity_is_bit_for_bit():
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 224, 224, 3), dtype=np.float32))
+    assert resize_bilinear(x, 224) is x
+    img = np.random.default_rng(1).integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        eval_preprocess(torch.from_numpy(img), 224).numpy(),
+        normalize_only(img),
+    )
+
+
+def normalize_only(img):
+    from rot_mvgaze_tpu_torch.augment.ops import normalize, to_float
+
+    return normalize(to_float(torch.from_numpy(img))).numpy()
+
+
+def test_resize_keeps_leading_dims_and_dtype():
+    x = torch.rand(2, 3, 48, 40, 3, dtype=torch.bfloat16)
+    y = resize_bilinear(x, 32)
+    assert y.shape == (2, 3, 32, 32, 3) and y.dtype == torch.bfloat16
+    flat = resize_bilinear(x.reshape(6, 48, 40, 3), 32).reshape(2, 3, 32, 32, 3)
+    assert torch.equal(y, flat)
 
 
 # ---------------------------------------------------------------------------

@@ -618,3 +618,86 @@ def test_model_family_update_launch_counts(cuda, name):
     after = [k.launches for k in batchnorm.KERNELS] + [fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"]]
     assert [a - b for a, b in zip(after, before)] == [per_bn * n_bn] * len(batchnorm.KERNELS) + [n_fuser]
     assert torch.isfinite(stats["loss_gaze"])
+
+
+# ---------------------------------------------------------------------------
+# the serving surface: the int8 product, the fuser inside an exported
+# program, the resize
+# ---------------------------------------------------------------------------
+
+# (M, K, N): the R50 stem's K = 7*7*3 = 147 (padded to 152), a 3x3 conv's
+# (K = 9*64) and a 1x1 conv's at micro-batch 64 x 2 views, and shapes that
+# need M and N padded
+INT8_GEMM_CASES = [(128 * 112 * 112, 147, 64), (128 * 56 * 56, 576, 64), (128 * 56 * 56, 256, 64),
+                   (5, 40, 12), (300, 33, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", INT8_GEMM_CASES, ids=["stem", "3x3", "1x1", "m5_n12", "k33_n10"])
+def test_int8_matmul_equals_plain_bit_for_bit(cuda, m, k, n):
+    """torch._int_mm on the int8 tensor cores, full-range int8 inputs: the
+    int32 result is the plain float64 product's exactly, one launch."""
+    from rot_mvgaze_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda, generator=g)
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=cuda, generator=g)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, quant.int8_matmul_reference(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [((8, 3, 64, 64), (64, 3, 7, 7), 2, 3, 1), ((8, 64, 16, 16), (64, 64, 3, 3), 1, 1, 1),
+                                  ((8, 256, 16, 16), (128, 256, 1, 1), 2, 0, 1),
+                                  ((8, 128, 8, 8), (128, 4, 3, 3), 1, 1, 32)],
+                         ids=["stem", "3x3", "1x1_s2", "grouped"])
+def test_int8_conv_accumulate_equals_plain_bit_for_bit(cuda, case):
+    from rot_mvgaze_tpu_torch.ops import quant
+
+    xs, ws, stride, pad, groups = case
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x8 = torch.randint(-127, 128, xs, dtype=torch.int8, device=cuda, generator=g).to(memory_format=torch.channels_last)
+    w8 = torch.randint(-127, 128, ws, dtype=torch.int8, device=cuda, generator=g)
+    got = quant.int8_conv_accumulate(x8, w8, stride, pad, groups)
+    assert torch.equal(got, quant.int8_conv_accumulate_reference(x8, w8, stride, pad, groups))
+
+
+@pytest.mark.gpu
+def test_exported_program_launches_the_fuser_kernel(cuda, tmp_path):
+    """R18 (D = V = 512: the wgmma variant), 2 iterations, bf16, micro-batch
+    8, 64x64: the loaded program launches the fuser's wgmma kernel 2 x 2
+    times per micro-batch and predicts what the live predictor predicts."""
+    from rot_mvgaze_tpu_torch import export, serving
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.manual_seed(0)
+    ckpt = str(tmp_path / "m.pth.tar")
+    torch.save(FeatRotationSymm(backbone_depth=18, num_iter=2).state_dict(), ckpt)
+    live = serving.GazePredictor(ckpt, backbone_depth=18, num_iter=2, micro_batch=8, image_size=64)
+    artifact = str(tmp_path / "a.pt2")
+    export.export_serving_artifact(live.model, artifact, micro_batch=8, image_size=64)
+    aot = export.AotGazePredictor(artifact, ckpt)
+    rng = np.random.default_rng(0)
+    req = (rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8), rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8),
+           rng.uniform(-0.5, 0.5, (16, 2)).astype(np.float32), rng.uniform(-0.5, 0.5, (16, 2)).astype(np.float32))
+    before = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+    got = aot.predict(*req)
+    after = fusion.rotate_concat_matmul_relu.launches_by_variant
+    assert after["wgmma"] - before["wgmma"] == 2 * 2 * 2 and after["generic"] == before["generic"]
+    want = live.predict(*req)
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h, w", [(448, 448), (129, 129), (300, 200), (112, 112)])
+def test_resize_on_the_card_equals_the_cpu(cuda, h, w):
+    """The same weights and contraction: float32 within 1e-6 (TF32 off)."""
+    from rot_mvgaze_tpu_torch.augment.ops import resize_bilinear
+
+    x = torch.from_numpy(np.random.default_rng(h).random((4, h, w, 3), dtype=np.float32))
+    got = resize_bilinear(x.to(cuda), 224).cpu()
+    torch.testing.assert_close(got, resize_bilinear(x, 224), atol=1e-6, rtol=0)

@@ -39,6 +39,9 @@ for name in names:
 import chip_smoke
 from rot_mvgaze_tpu_torch.cli.main import get_parser
 get_parser().parse_args(["--exp_name", "xgaze2mpiinv_known", "--mode", "test", "--ckpt_resume", "x.msgpack"])
+from rot_mvgaze_tpu_torch import export_model, serve
+serve.get_parser().parse_args(["--ckpt", "x.pth.tar", "--int8_static", "--num_views", "3"])
+export_model.get_parser().parse_args(["--ckpt", "x.pth.tar", "--out", "a.pt2", "--int8"])
 print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -57,7 +60,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                    "utils.profiling", "utils.summary", "utils.device", "utils.config",
                    "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "cli.main",
                    "__main__", "models.multiview", "models.single", "losses.multiview",
-                   "data.multiview", "train.multiview_steps"):
+                   "data.multiview", "train.multiview_steps", "ops.quant", "export", "export_model"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in NOT_ON_THE_CARD] == []

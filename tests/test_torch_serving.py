@@ -172,11 +172,6 @@ def test_batching_predictor_rejects_malformed_requests(predictor, mutate):
         batching.close()
 
 
-def test_direct_predict_rejects_off_size_images(predictor):
-    with pytest.raises(ValueError, match="not ported"):
-        predictor.predict(*_request(1, size=SIZE // 2))
-
-
 def test_default_device_without_card_raises(ckpt_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
