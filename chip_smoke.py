@@ -113,7 +113,7 @@ script exits non-zero and prints no result line:
    mode on the first batch). Images/s over the train run's updates (a smoke
    reading, beside phase 7a's bare step), the share of that span between
    updates (waiting for the loader, staging the batch), peak memory and the
-   phase's seconds. --num_views 3 --grad_accum 2 and --remat true exit
+   phase's seconds. --num_views 3 --grad_accum 2 and --spatial_partition 2 exit
    non-zero before any data is read.
 10. model family: R50 x 3 at full width. (a) The main path: one bf16
    update of 64 pairs (or frames) of each configuration beyond the default
@@ -165,18 +165,47 @@ script exits non-zero and prints no result line:
    micro-batch, every program predicts what its live predictor predicts
    (bit for bit, or within 1e-6 deg). Artifact sizes, peak memory, the
    phase's seconds.
-12. the kernels line, the card line, and as the last line
+12. the last training options and data parallelism, R50 x 3, bf16, full
+   width, counts set to 0 just before each update and read just after.
+   (a) --bn_stat_subsample 2 at 64 pairs: 106 launches per BN kernel and 6
+   fuser; one update through the kernels against the same update through
+   the plain versions, at phase 7b's bars in bf16 and f32; bn_stats on the
+   prefix, bn_bwd_reduce with the prefix's count and bn_bwd_dx with the
+   statistics terms on the prefix rows against float64 at every distinct
+   BN shape of the step (half the rows the prefix), bf16 and f32, with the
+   data-parallel finish kernels over two halves of the rows (and on all
+   rows bit for bit the one-launch path); the device ms of those paths over
+   the step's 106 calls beside the k = 1 path, in turns. (b) --remat
+   against the same update without it from one saved state (cuDNN
+   deterministic): loss and pred_gaze at phase 7b's bf16 bars, every
+   gradient within atol 5e-3 / rtol 5e-2, BN buffers within 1e-4, each
+   num_batches_tracked moved once per view; launches 210 / 210 / 106 / 106
+   and 6; torch.cuda.max_memory_allocated of both updates. (c)
+   --profile_steps 2 through the Trainer over an epoch of 3 updates:
+   exactly one trace file, 2 optimizer steps in it (the first update
+   outside), and two updates' BN kernel and fuser records. (d) two
+   processes on the one card (gloo over CUDA tensors), 32 pairs each,
+   against one process on the concatenated 64 from one state: the ranks'
+   states the same bits; bf16: loss within 1%, the updated model's eval
+   predictions within 0.1 deg; f32: loss rtol 1e-4, gradients at phase 7b's
+   f32 bars (against a float64 step), eval predictions atol 2e-4 / rtol
+   1e-3, BN buffers within 1e-4; launches per rank 106 per BN kernel, 6
+   fuser, 106 of each finish kernel. A world of one over nccl: the group
+   path bit for bit the no-group path, bf16 and f32. NCCL across cards is
+   not measured (one card).
+13. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-12, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-13, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
-old, new, new, old; each builds its own tree's kernels and times the fuser
-at the serving shape (time_fusion's inputs and timing), bn_bwd_dx,
-bn_bwd_reduce, bn_stats and bn_apply over the 106 BN calls of one training step
+old, new, new, old (``--pairs P``: P pairs, the order alternating); each
+builds its own tree's kernels and times the fuser at the serving shape
+(time_fusion's inputs and timing), bn_bwd_dx, bn_bwd_reduce, bn_stats and
+bn_apply over the 106 BN calls of one training step
 (time_bn's inputs and timing), at shapes taken once from this tree's R50
 backbone, the conv kernel at the probe's shape (run_probe's inputs and
 timing), and its own bf16 GazePredictor (phase 4's checkpoint, micro-batch
@@ -194,6 +223,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -901,9 +931,11 @@ def family_metrics(flags):
     return IterationLoss(loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
 
 
-def make_trainer(state, dtype, grad_accum=1, flags=None):
+def make_trainer(state, dtype, grad_accum=1, flags=None, group=None):
     """(model, train_step) from a saved state dict: R50 x 3 iterations of
-    the configuration ``flags`` (family_model)."""
+    the configuration ``flags`` (family_model); ``group``: data-parallel
+    over that process group (the BNs' statistics and the step's)."""
+    from rot_mvgaze_tpu_torch import parallel
     from rot_mvgaze_tpu_torch.train import (
         cyclic_triangular2,
         make_multiview_train_step,
@@ -915,8 +947,9 @@ def make_trainer(state, dtype, grad_accum=1, flags=None):
     model = family_model(flags)
     model.load_state_dict(state, strict=True)
     model = model.to(device="cuda", memory_format=torch.channels_last)
+    parallel.set_batchnorm_group(model, group)
     options = dict(image_size=224, schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
-                   compute_dtype=dtype)
+                   compute_dtype=dtype, group=group)
     if family_views(flags) > 2:
         return model, make_multiview_train_step(model, family_metrics(flags),
                                                 make_optimizer(model.parameters()), **options)
@@ -1125,19 +1158,7 @@ def compare_paths(fusion, batchnorm, label, name, state, batch, dtype, per_step,
     if dtype == torch.float32:
         np.testing.assert_allclose(lk, lp, rtol=1e-4)
         l64, g64 = reference_step_f64(state, batch, seed=seed, grad_accum=grad_accum, flags=flags)
-        worst, ill = 0.0, {}
-        for n in gk:
-            ref = g64[n]
-            if torch.allclose(gp[n].double(), ref, atol=5e-3, rtol=5e-2):
-                worst = max(worst, (gk[n] - gp[n]).abs().max().item())
-                torch.testing.assert_close(gk[n], gp[n], atol=5e-3, rtol=5e-2,
-                                           msg=lambda m: f"grad {n} ({name}): {m}")
-                continue
-            ek = float((gk[n].double() - ref).norm() / ref.norm())
-            ep = float((gp[n].double() - ref).norm() / ref.norm())
-            ill[n] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
-            if not ek <= 1.5 * ep:
-                raise RuntimeError(f"grad {n} ({name}): kernel path {ek:.3e} from f64, plain {ep:.3e}")
+        worst, ill = hold_f32_grads(name, gk, gp, g64)
         del g64
         log(f"{label}, kernel vs plain: loss {lk:.8f} vs {lp:.8f} (f64 {l64:.8f}); "
             f"{len(gk) - len(ill)} of {len(gk)} gradients within atol 5e-3 / rtol 5e-2, max "
@@ -1156,6 +1177,28 @@ def compare_paths(fusion, batchnorm, label, name, state, batch, dtype, per_step,
     del gk, gp
     torch.cuda.empty_cache()
     return out
+
+
+def hold_f32_grads(name, gk, gp, g64) -> tuple:
+    """compare_paths' f32 gradient bars: ``gk`` (the path under test) within
+    atol 5e-3 / rtol 5e-2 of ``gp`` (its yardstick) wherever ``gp`` is within
+    that bar of the float64 step ``g64``; elsewhere no farther from f64
+    (norm-relative) than 1.5x ``gp``. Returns (max |diff| under the bar,
+    {name: errors} of the others)."""
+    worst, ill = 0.0, {}
+    for n in gk:
+        ref = g64[n]
+        if torch.allclose(gp[n].double(), ref, atol=5e-3, rtol=5e-2):
+            worst = max(worst, (gk[n] - gp[n]).abs().max().item())
+            torch.testing.assert_close(gk[n], gp[n], atol=5e-3, rtol=5e-2,
+                                       msg=lambda m: f"grad {n} ({name}): {m}")
+            continue
+        ek = float((gk[n].double() - ref).norm() / ref.norm())
+        ep = float((gp[n].double() - ref).norm() / ref.norm())
+        ill[n] = {"kernel_vs_f64": ek, "plain_vs_f64": ep}
+        if not ek <= 1.5 * ep:
+            raise RuntimeError(f"grad {n} ({name}): {ek:.3e} from f64, its yardstick {ep:.3e}")
+    return worst, ill
 
 
 def bn_bytes(kind, rows, c, itemsize, relu, res) -> int:
@@ -1711,7 +1754,7 @@ def run_cli_phase(fusion, batchnorm, bare_imgs_per_s) -> dict:
 
         # refused options exit before any data is read: a data_path that does
         # not exist would raise FileNotFoundError, not SystemExit
-        for refused in (["--num_views", "3", "--grad_accum", "2"], ["--remat", "true"]):
+        for refused in (["--num_views", "3", "--grad_accum", "2"], ["--spatial_partition", "2"]):
             argv = ["--exp_name", "xgaze2mpiinv_known", "--data_path", os.path.join(tmp, "absent.yaml"),
                     *refused]
             try:
@@ -2355,6 +2398,519 @@ def run_serving_surface_phase(fusion, batchnorm, stereo_ckpt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the last training options and data parallelism (phase 12)
+# ---------------------------------------------------------------------------
+
+# launches per stereo update under --remat: the 52 BNs of R50's 16 blocks run
+# their forward again in the backward, once per view (the stem's does not)
+PER_STEP_REMAT = {**PER_STEP, "bn_stats": 210, "bn_apply": 210}
+SUBSAMPLE = 2  # --bn_stat_subsample of phase 12a
+DP_WORLD = 2  # phase 12d's ranks, both on the one card
+# the finish kernel of each kernel whose statistics data parallelism reduces
+DP_FINISH = {"bn_stats": "bn_stats_finish", "bn_bwd_reduce": "bn_bwd_finish"}
+
+
+def check_prefix_kernels(batchnorm, cases) -> dict:
+    """Phase 12a: the three kernels --bn_stat_subsample changes, on the
+    prefix's path at each of ``cases`` (name, rows, C, relu, residual) with
+    the first half of the rows as the prefix (k = 2: the first 32 of a
+    view's 64 images), against their plain versions in float64 at phase 6a's
+    bars, bf16 and f32: bn_stats on the prefix, bn_bwd_reduce over every row
+    divided by the prefix's count, bn_bwd_dx with the statistics terms on
+    the prefix rows only (the other rows exactly k*g'). With them the data
+    parallelism's finish kernels: bn_stats' and bn_bwd_reduce's sums over
+    the two halves of the rows, added (two ranks' all-reduce), then
+    bn_stats_finish and bn_bwd_finish, against the float64 plain versions
+    over all rows, and on all rows at once bit for bit the one-launch path.
+    Returns each kernel's max |err| over the bf16 cases."""
+    worst = {"bn_stats": 0.0, "bn_bwd_reduce": 0.0, "bn_bwd_dx": 0.0}
+    for case, rows, c, relu, with_res in cases:
+        n = rows // 2
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(rows + c + 7)
+            x = (torch.randn(rows, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+            res = torch.randn(rows, c, device="cuda", generator=g).to(dtype) if with_res else None
+            gy = torch.randn(rows, c, device="cuda", generator=g).to(dtype)
+            scale = torch.rand(c, device="cuda", generator=g) + 0.5
+            bias = torch.randn(c, device="cuda", generator=g) * 0.1
+            gmean, gvar = torch.randn(c, device="cuda", generator=g), torch.randn(c, device="cuda", generator=g)
+            mean, var, rstd, a, b = batchnorm.bn_stats(x[:n], scale, bias, 1e-5)
+            y = batchnorm.bn_apply(x, a, b, res, relu)
+            dscale, dbias, k, mg, mgx = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu, count=n)
+            dx, _ = batchnorm.bn_bwd_dx(gy, y, x, mean, rstd, k, mg, mgx, gmean, gvar, relu, False,
+                                        stat_rows=n, count=n)
+            # the data-parallel path: one launch's results bit for bit, then two halves
+            sums_all = batchnorm.bn_stats(x, scale, bias, 1e-5, sums=True)
+            one = batchnorm.bn_stats(x, scale, bias, 1e-5)
+            if not all(map(torch.equal, batchnorm.bn_stats_finish(sums_all, scale, bias, 1e-5), one)):
+                raise RuntimeError(f"bn_stats_finish {case} {dtype}: not the one-launch path bit for bit")
+            y_all = batchnorm.bn_apply(x, one[3], one[4], res, relu)
+            red = batchnorm.bn_bwd_reduce(gy, y_all, x, one[0], one[2], scale, relu)
+            gsums_all = batchnorm.bn_bwd_reduce(gy, y_all, x, one[0], one[2], scale, relu, sums=True)[3]
+            if not all(map(torch.equal, batchnorm.bn_bwd_finish(gsums_all, sums_all), red[3:])):
+                raise RuntimeError(f"bn_bwd_finish {case} {dtype}: not the one-launch path bit for bit")
+            halves = (slice(0, n), slice(n, rows))
+            sums = sum(batchnorm.bn_stats(x[h], scale, bias, 1e-5, sums=True) for h in halves)
+            dmean, dvar, drstd, _, _ = batchnorm.bn_stats_finish(sums, scale, bias, 1e-5)
+            gsums = sum(batchnorm.bn_bwd_reduce(gy[h], y_all[h], x[h], dmean, drstd, scale, relu, sums=True)[3]
+                        for h in halves)
+            dmg, dmgx = batchnorm.bn_bwd_finish(gsums, sums)
+            torch.cuda.synchronize()
+            g_masked = torch.where(y > 0, gy.float(), 0.0) if relu else gy.float()
+            if not torch.equal(dx[n:], (k * g_masked[n:]).to(dtype)):
+                raise RuntimeError(f"bn_bwd_dx {case} {dtype}: rows past the prefix are not k*g'")
+
+            def d(t):
+                return None if t is None else t.double()
+
+            pm, pv, pr, pa, pb = batchnorm.bn_stats_reference(d(x[:n]), d(scale), d(bias), 1e-5)
+            pds, pdb, pk, pmg, pmgx = batchnorm.bn_bwd_reduce_reference(
+                d(gy), d(y), d(x), pm, pr, d(scale), relu, count=n)
+            pdx, _ = batchnorm.bn_bwd_dx_reference(d(gy), d(y), d(x), pm, pr, pk, pmg, pmgx, d(gmean), d(gvar),
+                                                   relu, False, stat_rows=n, count=n)
+            am, av, ar, _, _ = batchnorm.bn_stats_reference(d(x), d(scale), d(bias), 1e-5)
+            _, _, _, amg, amgx = batchnorm.bn_bwd_reduce_reference(d(gy), d(y_all), d(x), am, ar, d(scale), relu)
+            f32 = dtype == torch.float32
+            checks = [
+                ("bn_stats", mean, pm, BN_FWD_TOL), ("bn_stats", var, pv, BN_FWD_TOL),
+                ("bn_bwd_reduce", dscale, pds, BN_GRAD_TOL), ("bn_bwd_reduce", dbias, pdb, BN_GRAD_TOL),
+                ("bn_bwd_reduce", mg, pmg, BN_GRAD_TOL), ("bn_bwd_reduce", mgx, pmgx, BN_GRAD_TOL),
+                ("bn_bwd_dx", dx, pdx, BN_GRAD_TOL if f32 else BN_BF16_TOL),
+                ("bn_stats", dmean, am, BN_FWD_TOL), ("bn_stats", dvar, av, BN_FWD_TOL),
+                ("bn_bwd_reduce", dmg, amg, BN_GRAD_TOL), ("bn_bwd_reduce", dmgx, amgx, BN_GRAD_TOL),
+            ]
+            for name, got, want, (atol, rtol) in checks:
+                torch.testing.assert_close(got.double(), want, atol=atol, rtol=rtol,
+                                           msg=lambda m: f"{name} prefix/finish {case} {dtype}: {m}")
+                if not f32:
+                    worst[name] = max(worst[name], (got.double() - want).abs().max().item())
+    log(f"prefix and data-parallel finish kernels held to float64 at {len(cases)} shapes, bf16 and f32; "
+        f"bf16 max |err| {worst}")
+    return worst
+
+
+def time_options_bn(batchnorm, shapes) -> dict:
+    """Phase 12a's timings over the 106 BN calls of one 64-pair step (bf16,
+    device_ms, in turns with the k = 1 path on the same calls): bn_stats on
+    the prefix (k = 2), bn_bwd_reduce with its count, bn_bwd_dx with the
+    prefix; and the data-parallel path without its all-reduce: bn_stats'
+    sums then bn_stats_finish, bn_bwd_reduce's sums then bn_bwd_finish, and
+    the two finish kernels alone."""
+    calls = bn_calls(batchnorm, shapes, seed=43)
+    for q in calls:
+        q["n"] = q["rows"] // SUBSAMPLE
+        q["sums"] = batchnorm.bn_stats(q["x"], q["scale"], q["bias"], 1e-5, sums=True)
+        q["gsums"] = batchnorm.bn_bwd_reduce(q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["scale"],
+                                             q["relu"], sums=True)[3]
+
+    def each(fn):
+        def run(_):
+            for q in calls:
+                fn(q)
+        return run
+
+    runners = {
+        "bn_stats_prefix": each(lambda q: batchnorm.bn_stats(q["x"][:q["n"]], q["scale"], q["bias"], 1e-5)),
+        "bn_bwd_reduce_prefix": each(lambda q: batchnorm.bn_bwd_reduce(
+            q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["scale"], q["relu"], count=q["n"])),
+        "bn_bwd_dx_prefix": each(lambda q: batchnorm.bn_bwd_dx(
+            q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["k"], q["mg"], q["mgx"], None, None, q["relu"],
+            q["relu"] and q["res"], stat_rows=q["n"], count=q["n"])),
+        "bn_stats_sums_and_finish": each(lambda q: batchnorm.bn_stats_finish(
+            batchnorm.bn_stats(q["x"], q["scale"], q["bias"], 1e-5, sums=True), q["scale"], q["bias"], 1e-5)),
+        "bn_bwd_reduce_sums_and_finish": each(lambda q: batchnorm.bn_bwd_finish(batchnorm.bn_bwd_reduce(
+            q["gy"], q["y"], q["x"], q["mean"], q["rstd"], q["scale"], q["relu"], sums=True)[3], q["sums"])),
+        "bn_stats_finish_alone": each(lambda q: batchnorm.bn_stats_finish(q["sums"], q["scale"], q["bias"], 1e-5)),
+        "bn_bwd_finish_alone": each(lambda q: batchnorm.bn_bwd_finish(q["gsums"], q["sums"])),
+    }
+    k1_of = {"bn_stats_prefix": "bn_stats", "bn_bwd_reduce_prefix": "bn_bwd_reduce",
+             "bn_bwd_dx_prefix": "bn_bwd_dx", "bn_stats_sums_and_finish": "bn_stats",
+             "bn_bwd_reduce_sums_and_finish": "bn_bwd_reduce"}
+    out = {}
+    for name, fn in runners.items():
+        base = k1_of.get(name)
+        k1 = bn_runner(batchnorm, calls, base) if base else None
+        # k = 1, this path, this path, k = 1: in turns on the same calls
+        a1 = device_ms(k1) if k1 else None
+        t1, t2 = device_ms(fn), device_ms(fn)
+        a2 = device_ms(k1) if k1 else None
+        out[name] = {"ms": min(t1, t2), "runs_ms": [t1, t2]}
+        if k1:
+            out[name].update(k1_ms=min(a1, a2), k1_runs_ms=[a1, a2], k1_kernel=base)
+    log("options' BN paths over the step's 106 calls (device ms; k = 1 beside): "
+        + "; ".join(f"{n} {r['ms']:.4f}" + (f" (k=1 {r['k1_ms']:.4f})" if "k1_ms" in r else "")
+                    for n, r in out.items()))
+    return out
+
+
+def model_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+
+def compare_remat(fusion, batchnorm, state, batch, seed=52) -> dict:
+    """Phase 12b: one bf16 update with --remat against the same update
+    without it, from one saved state and one generator seed: losses within
+    1% and pred_gaze's mean angular delta <= 0.1 deg (phase 7b's bf16
+    bars), every gradient within atol 5e-3 / rtol 5e-2 and every BN buffer
+    within 1e-4 (phase 7b's f32 gradient bar and the running statistics'
+    bar; cuDNN deterministic for the two updates), each BN's
+    num_batches_tracked moved by 2 (once per view: the recompute moved
+    none); launches 210 / 210 / 106 / 106 and 6 against 106 each and 6;
+    torch.cuda.max_memory_allocated of each update."""
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+
+    runs = {}
+    for remat in (False, True):
+        model, step = make_trainer(state, torch.bfloat16, flags={"remat": True} if remat else None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fusion, batchnorm)
+        stats = step(batch, torch.Generator(device="cuda").manual_seed(seed), step=0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        counts = launch_counts(fusion, batchnorm)
+        want = PER_STEP_REMAT if remat else PER_STEP
+        if counts != want or fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"] != 6:
+            raise RuntimeError(f"remat={remat} update launched {counts}, expected {want}")
+        runs[remat] = {"loss": float(stats["loss_gaze"]), "pred": stats["pred_gaze"].float().cpu().numpy(),
+                       "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                 if p.grad is not None},
+                       "buffers": model_buffers(model), "peak_mib": peak, "counts": counts}
+        del model, step
+    a, b = runs[False], runs[True]
+    rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+    delta = float(angular_error_numpy(b["pred"], a["pred"]).mean())
+    if not (rel <= 1e-2 and delta <= 0.1):
+        raise RuntimeError(f"remat update deviates: loss rel {rel}, pred_gaze {delta} deg")
+    worst_grad, bit_equal = 0.0, True
+    for n, g in a["grads"].items():
+        torch.testing.assert_close(b["grads"][n], g, atol=5e-3, rtol=5e-2, msg=lambda m: f"remat grad {n}: {m}")
+        worst_grad = max(worst_grad, (b["grads"][n] - g).abs().max().item())
+        bit_equal &= torch.equal(b["grads"][n], g)
+    for n, v in a["buffers"].items():
+        if n.endswith("num_batches_tracked"):
+            if int(v) != 2 or int(b["buffers"][n]) != 2:
+                raise RuntimeError(f"{n}: num_batches_tracked {int(v)} and {int(b['buffers'][n])} under "
+                                   f"remat, expected 2 (once per view)")
+            continue
+        torch.testing.assert_close(b["buffers"][n], v, atol=1e-4, rtol=0, msg=lambda m: f"remat buffer {n}: {m}")
+    log(f"remat against plain (bf16, 64 pairs): loss {b['loss']:.6f} vs {a['loss']:.6f} (rel {rel:.2e}); "
+        f"pred_gaze delta {delta:.3e} deg; gradients max |diff| {worst_grad:.3e} (bit for bit: {bit_equal}); "
+        f"launches {b['counts']} vs {a['counts']}; peak memory {b['peak_mib']:.0f} vs {a['peak_mib']:.0f} MiB")
+    return {"loss_rel": rel, "delta_deg": delta, "max_grad_diff": worst_grad, "grads_bit_for_bit": bit_equal,
+            "peak_mib_remat": b["peak_mib"], "peak_mib_plain": a["peak_mib"],
+            "launches_remat": b["counts"], "launches_plain": a["counts"]}
+
+
+def run_profile_trainer(fusion, batchnorm) -> dict:
+    """Phase 12c: the Trainer with profile_steps 2 over one epoch of 3
+    updates (an in-memory corpus of 216 pairs): exactly one trace file in
+    <output_dir>/profile, holding 2 optimizer steps (the first update is
+    outside the window), and of each BN kernel more than one update's 106
+    records and at most two updates' (the wgmma fuser: 6, 12; CUPTI may drop
+    a record); every update 106 launches per BN kernel and 6 fuser."""
+    from rot_mvgaze_tpu_torch.data import InMemoryGazeDataset
+
+    train_ds = InMemoryGazeDataset(2, n_frames=6, image_size=224, seed=0, learnable=True)
+    test_ds = InMemoryGazeDataset(1, n_frames=1, image_size=224, seed=100, learnable=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = port_trainer(tmp, train_ds, test_ds, epochs=1, profile_steps=2)
+        steps = record_steps(trainer, fusion, batchnorm)
+        reset_counts(fusion, batchnorm)
+        trainer.train_one_epoch(0)
+        launches = launch_counts(fusion, batchnorm)
+        check_steps("profile_steps 2", steps, PER_STEP, 3)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(tmp, "profile")) for f in fs]
+        if files != [trainer.profile_trace]:
+            raise RuntimeError(f"profile_steps: trace files {files}, expected one ({trainer.profile_trace})")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(files[0])
+    names = [e.get("name", "") for e in events]
+    # the host's range of each optimizer step (the device timeline repeats
+    # it as a gpu_user_annotation)
+    counts = {"optimizer_steps": sum(e.get("name", "").startswith("Optimizer.step#Adam.step")
+                                     and e.get("cat") != "gpu_user_annotation" for e in events)}
+    for kind in BN_KERNELS:
+        counts[kind] = sum(f"{kind}_kernel<" in n for n in names)
+    counts["fusion"] = sum("fusion_wgmma_kernel<" in n for n in names)
+    # two updates' records, the first update's none (CUPTI may drop a record)
+    ok = counts["optimizer_steps"] == 2 and all(106 < counts[k] <= 2 * 106 for k in BN_KERNELS) \
+        and 6 < counts["fusion"] <= 12
+    if not ok:
+        raise RuntimeError(f"profile trace records {counts}: expected 2 optimizer steps and, of each BN "
+                           f"kernel, more than one update's 106 and at most two updates' (fuser: 6, 12)")
+    log(f"profile_steps 2 through the Trainer: one trace ({size} bytes), records {counts}")
+    return {"launches": launches, "trace_records": counts, "trace_bytes": size}
+
+
+def dp_step(model, step, batch, seed) -> dict:
+    """One update of phase 12d: loss, pred_gaze, gradients, and the state
+    after Adam (CPU tensors)."""
+    stats = step(batch, torch.Generator(device="cuda").manual_seed(seed), step=0)
+    torch.cuda.synchronize()
+    return {"loss": float(stats["loss_gaze"]), "pred": stats["pred_gaze"].float().cpu(),
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def dp_worker(mode: str, work: str) -> None:
+    """One process of phase 12d (started by run_dp_phase with torchrun's
+    variables): ``gloo`` ranks train on their rows of the saved batch, over
+    CUDA tensors on the one card; ``nccl1`` is a world of one over nccl that
+    runs the same update without a group and then through the group path.
+    Saves its readings to ``work``."""
+    from rot_mvgaze_tpu_torch import parallel
+    from rot_mvgaze_tpu_torch.kernels import build
+    from rot_mvgaze_tpu_torch.ops import batchnorm, fusion
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    build.build()
+    state = torch.load(os.path.join(work, "state.pt"))
+    full = torch.load(os.path.join(work, "batch.pt"))
+    out = {}
+    if mode == "nccl1":
+        for dtype in (torch.bfloat16, torch.float32):
+            model, step = make_trainer(state, dtype)
+            out[f"none_{dtype}"] = dp_step(model, step, {k: v.cuda() for k, v in full.items()}, seed=62)
+            del model, step
+        if not parallel.initialize("cuda", backend="nccl"):
+            raise RuntimeError("the nccl world of one did not start")
+    else:
+        if not parallel.initialize("cuda", backend="gloo"):
+            raise RuntimeError("the gloo ranks did not start")
+    rank, world, group = parallel.process_index(), parallel.process_count(), torch.distributed.group.WORLD
+    n = full["img_0"].shape[0] // world
+    local = {k: v[rank * n:(rank + 1) * n].cuda() for k, v in full.items()}
+    for dtype in (torch.bfloat16, torch.float32):
+        model, step = make_trainer(state, dtype, group=group)
+        reset_counts(fusion, batchnorm)
+        batchnorm.bn_stats.finish_launches = batchnorm.bn_bwd_reduce.finish_launches = 0
+        reading = dp_step(model, step, local, seed=62)
+        reading["launches"] = {**launch_counts(fusion, batchnorm),
+                               "bn_stats_finish": batchnorm.bn_stats.finish_launches,
+                               "bn_bwd_finish": batchnorm.bn_bwd_reduce.finish_launches}
+        out[f"group_{dtype}"] = reading
+        del model, step
+    torch.save(out, os.path.join(work, f"{mode}_rank{rank}.pt"))
+    parallel.shutdown()
+
+
+def launch_dp(mode: str, world: int, work: str, timeout: float = 300) -> list:
+    """Start ``world`` dp_worker processes of ``mode`` with torchrun's
+    variables (every rank on card 0) and wait for them; their readings."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", mode, work],
+                                      cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{mode} rank {rank} failed (exit {p.returncode}):\n{text[-6000:]}")
+    return [torch.load(os.path.join(work, f"{mode}_rank{r}.pt")) for r in range(world)]
+
+
+def held_as_one_process(name, dtype, ranks, single, state, batch, seed) -> dict:
+    """Phase 12d's bars for the ranks' update against one process's on the
+    concatenated batch. bf16 (phase 7b's bars): loss within 1%, and the
+    updated model's float32 eval predictions on the batch within 0.1 deg
+    mean; the train forward's pred_gaze (the ranks' rows in order) is read.
+    f32 (phase 7b's f32
+    bars): loss rtol 1e-4, gradients by hold_f32_grads against a float64
+    step, the updated model's eval predictions at phase 4's f32 bar (atol
+    2e-4 / rtol 1e-3), every BN running buffer within 1e-4. Both: every
+    rank's state the same bits (global statistics: local ones would differ
+    by rank); the buffers' largest norm-relative difference is read."""
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+
+    for r in ranks[1:]:
+        for k, v in ranks[0]["state"].items():
+            if not torch.equal(r["state"][k], v):
+                raise RuntimeError(f"{name}: ranks disagree on {k}")
+    loss = ranks[0]["loss"]
+    rel = abs(loss - single["loss"]) / abs(single["loss"])
+    pred = torch.cat([r["pred"] for r in ranks]).numpy()
+    delta = float(angular_error_numpy(pred, single["pred"].numpy()).mean())
+    eval_batch = {k: v.cuda() for k, v in batch.items()}
+
+    def evaluate(sd):
+        from rot_mvgaze_tpu_torch.train.steps import make_eval_step
+
+        model = family_model({})
+        model.load_state_dict(sd, strict=True)
+        model = model.to(device="cuda", memory_format=torch.channels_last)
+        return make_eval_step(model, 224)(eval_batch)["pred_gaze"].cpu().numpy()
+
+    e_ranks, e_single = evaluate(ranks[0]["state"]), evaluate(single["state"])
+    eval_delta = float(angular_error_numpy(e_ranks, e_single).mean())
+    # the running statistics. That they are the global batch's shows in the
+    # ranks' buffers being the same bits (above): local statistics would
+    # differ by rank. Against one process, f32 holds them within 1e-4. bf16
+    # is read, not held: cuDNN and cuBLAS pick their kernels by batch size,
+    # so 32 and 64 images round their bf16 activations (2^-9 of each) apart
+    # from the augmentation's resize on, and the random-init R50 amplifies
+    # that layer by layer; phase 7b holds bf16 by the loss and pred_gaze.
+    buffer_rel = 0.0
+    for k, v in single["state"].items():
+        if "running" not in k:
+            continue
+        if dtype == torch.float32:
+            torch.testing.assert_close(ranks[0]["state"][k], v, atol=1e-4, rtol=0, msg=lambda m: f"{name} {k}: {m}")
+        buffer_rel = max(buffer_rel, float((ranks[0]["state"][k].double() - v.double()).norm()
+                                           / max(v.double().norm(), 1e-30)))
+    out = {"loss_rel": rel, "pred_delta_deg": delta, "eval_delta_deg_after_adam": eval_delta,
+           "running_buffers_max_norm_rel_diff": buffer_rel}
+    if dtype == torch.bfloat16:
+        # the update is what the ranks must get right: its loss and the
+        # model after Adam. The train forward's pred_gaze is read: 32 and 64
+        # images take other conv and GEMM kernels, whose bf16 roundings
+        # (2^-9) the random-init R50 amplifies as it does f32's (2^-24),
+        # which the f32 update below holds
+        if not (rel <= 1e-2 and eval_delta <= 0.1):
+            raise RuntimeError(f"{name}: loss rel {rel}, after Adam {eval_delta} deg")
+    else:
+        np.testing.assert_allclose(loss, single["loss"], rtol=1e-4)
+        np.testing.assert_allclose(e_ranks, e_single, atol=2e-4, rtol=1e-3)
+        _, g64 = reference_step_f64(state, eval_batch, seed=seed)
+        worst, ill = hold_f32_grads(name, {n: g.cuda() for n, g in ranks[0]["grads"].items()},
+                                    {n: g.cuda() for n, g in single["grads"].items()}, g64)
+        out.update(max_grad_diff=worst, ill_conditioned=ill)
+    log(f"{name}: {len(ranks)} ranks against one process: {out}")
+    return out
+
+
+def run_dp_phase(fusion, batchnorm, seed=62) -> dict:
+    """Phase 12d: data parallelism. Two gloo ranks on the one card (CUDA
+    tensors), 32 pairs each, against one process on the concatenated 64
+    pairs, from one saved state, bf16 and f32 (held_as_one_process);
+    launches per rank per update: 106 per BN kernel, 6 fuser, 106 of each
+    finish kernel. Then a world of one over nccl: the group path (sums,
+    all-reduce, finish kernels, the gradients' all-reduce) bit for bit the
+    path without a group, in one process. cuDNN deterministic throughout.
+    NCCL across cards is not measured (one card)."""
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.manual_seed(3)
+    state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
+    batch = {k: v.cpu() for k, v in training_batch(seed=61).items()}
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            torch.save(state, os.path.join(work, "state.pt"))
+            torch.save(batch, os.path.join(work, "batch.pt"))
+            t0 = time.perf_counter()
+            ranks = launch_dp("gloo", DP_WORLD, work)
+            out["gloo_seconds"] = time.perf_counter() - t0
+            for dtype in (torch.bfloat16, torch.float32):
+                model, step = make_trainer(state, dtype)
+                single = dp_step(model, step, {k: v.cuda() for k, v in batch.items()}, seed)
+                del model, step
+                torch.cuda.empty_cache()
+                readings = [r[f"group_{dtype}"] for r in ranks]
+                want = {**PER_STEP, "bn_stats_finish": 106, "bn_bwd_finish": 106}
+                for r, reading in enumerate(readings):
+                    if reading["launches"] != want:
+                        raise RuntimeError(f"gloo rank {r} ({dtype}) launched {reading['launches']}, "
+                                           f"expected {want}")
+                name = f"dp_gloo_{str(dtype)[6:]}"
+                out[name] = held_as_one_process(name, dtype, readings, single, state, batch, seed)
+                out[name]["launches_per_rank"] = [reading["launches"] for reading in readings]
+            del ranks
+            t0 = time.perf_counter()
+            (one,) = launch_dp("nccl1", 1, work)
+            out["nccl1_seconds"] = time.perf_counter() - t0
+            for dtype in (torch.bfloat16, torch.float32):
+                a, b = one[f"none_{dtype}"], one[f"group_{dtype}"]
+                same = a["loss"] == b["loss"] and torch.equal(a["pred"], b["pred"]) and all(
+                    torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"]) and all(
+                    torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+                if not same:
+                    raise RuntimeError(f"nccl world of one ({dtype}): the group path is not the "
+                                       f"no-group path bit for bit")
+                out[f"nccl1_{str(dtype)[6:]}_bit_for_bit"] = True
+                out[f"nccl1_{str(dtype)[6:]}_launches"] = b["launches"]
+            log(f"nccl world of one: loss, pred_gaze, every gradient and the state after Adam bit for bit "
+                f"the no-group path, bf16 and f32; launches {one[f'group_{torch.bfloat16}']['launches']}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    return out
+
+
+def run_options_phase(fusion, batchnorm, bn_shapes) -> dict:
+    """Phase 12: --bn_stat_subsample (a), --remat (b), --profile_steps (c)
+    and data parallelism (d) at R50 x 3, full width. Returns the main path's
+    launches (a-c, counts set to 0 just before each update and read just
+    after), the DP ranks' launches and the numbers."""
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(5)
+    state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
+    batch = training_batch(seed=51)
+    numbers, launches = {}, dict.fromkeys(PER_STEP, 0)
+    seconds = {}
+    # (a) the subsample: kernels against plain in both dtypes, then the
+    # changed kernels against float64 at every prefix shape, and their times
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"subsample_{str(dtype)[6:]}"
+        numbers.update(compare_paths(fusion, batchnorm, f"--bn_stat_subsample {SUBSAMPLE} step {name}", name,
+                                     state, batch, dtype, PER_STEP, flags={"bn_stat_subsample": SUBSAMPLE}))
+        for k, v in PER_STEP.items():
+            launches[k] += v
+    numbers["prefix_bn_max_abs_err_bf16"] = check_prefix_kernels(batchnorm, step_bn_cases(PAIRS))
+    numbers["options_bn_ms_per_step"] = time_options_bn(batchnorm, bn_shapes)
+    seconds["subsample"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (b) remat
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        numbers["remat"] = compare_remat(fusion, batchnorm, state, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for k in launches:
+        launches[k] += PER_STEP[k] + PER_STEP_REMAT[k]
+    seconds["remat"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (c) the profiler window through the Trainer
+    t0 = time.perf_counter()
+    prof = run_profile_trainer(fusion, batchnorm)
+    numbers["profile"] = {k: prof[k] for k in ("trace_records", "trace_bytes")}
+    for k in launches:
+        launches[k] += prof["launches"][k]
+    seconds["profile"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (d) data parallelism
+    t0 = time.perf_counter()
+    numbers["data_parallel"] = run_dp_phase(fusion, batchnorm)
+    seconds["data_parallel"] = time.perf_counter() - t0
+    dp_launches = [numbers["data_parallel"][f"dp_gloo_{t}"]["launches_per_rank"] for t in ("bfloat16", "float32")]
+    numbers["seconds"] = time.perf_counter() - t_phase
+    numbers["seconds_by_part"] = seconds
+    log(f"options phase: {numbers['seconds']:.1f} s {seconds}")
+    return {"launches": launches, "dp_launches": dp_launches, "numbers": numbers}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -2432,11 +2988,12 @@ def run_turn(tree: str, shapes_file: str) -> dict:
     return record
 
 
-def kernel_turns(old: str, card: str) -> dict:
+def kernel_turns(old: str, card: str, pairs: int = 2) -> dict:
     """The fuser, the BN kernels of TURN_KERNELS and the conv kernel of
-    an earlier checkout ``old`` against this tree's, in four child
-    processes on one card: old, new, new, old. Each child prints one JSON
-    line; so does each turn here."""
+    an earlier checkout ``old`` against this tree's, in ``pairs`` pairs of
+    child processes on one card, the order alternating: old, new, new,
+    old, old, new, ... Each child prints one JSON line; so does each turn
+    here."""
     new = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(old, "rot_mvgaze_tpu_torch")):
         raise RuntimeError(f"{old} holds no rot_mvgaze_tpu_torch")
@@ -2445,7 +3002,8 @@ def kernel_turns(old: str, card: str) -> dict:
     with open(shapes_file, "w") as f:
         json.dump(step_bn_shapes(), f)
     turns = []
-    for label, tree in (("old", old), ("new", new), ("new", new), ("old", old)):
+    order = [(("old", old), ("new", new)) if k % 2 == 0 else (("new", new), ("old", old)) for k in range(pairs)]
+    for label, tree in (turn for pair in order for turn in pair):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn", tree, "--shapes", shapes_file],
@@ -2467,12 +3025,18 @@ def main(argv=None) -> int:
     ap.add_argument("--old", default=None, metavar="DIR",
                     help="instead of the phases above, time an earlier checkout's fuser, "
                          "BN kernels and conv kernel against this tree's, in turns")
+    ap.add_argument("--pairs", type=int, default=2,
+                    help="with --old: pairs of turns, the order alternating (2: old, new, new, old)")
     ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-worker", nargs=2, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card", file=sys.stderr)
         return 1
+    if args.dp_worker:
+        dp_worker(*args.dp_worker)
+        return 0
     if args.turn:
         print(json.dumps(run_turn(os.path.abspath(args.turn), args.shapes)), flush=True)
         return 0
@@ -2482,7 +3046,7 @@ def main(argv=None) -> int:
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.old:
-        print(json.dumps(kernel_turns(os.path.abspath(args.old), card)), flush=True)
+        print(json.dumps(kernel_turns(os.path.abspath(args.old), card, args.pairs)), flush=True)
         return 0
 
     from rot_mvgaze_tpu_torch.kernels import build
@@ -2532,6 +3096,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     surface = run_serving_surface_phase(fusion, batchnorm, trainer["checkpoint"])
     keep.cleanup()
+    torch.cuda.empty_cache()
+    options = run_options_phase(fusion, batchnorm, trained["bn_shapes"])
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -2540,6 +3106,7 @@ def main(argv=None) -> int:
     print(json.dumps({"cli": cli["numbers"], **tag}), flush=True)
     print(json.dumps({"model_family": family["numbers"], **tag}), flush=True)
     print(json.dumps({"serving_surface": surface["numbers"], **tag}), flush=True)
+    print(json.dumps({"options": options["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -2580,6 +3147,15 @@ def main(argv=None) -> int:
     ] + [
         ("surface_max_memory_allocated_mb", surface["numbers"]["max_memory_allocated_mb"], "MiB"),
         ("surface_phase_seconds", surface["numbers"]["seconds"], "s"),
+        ("remat_update_max_memory_allocated_mb", options["numbers"]["remat"]["peak_mib_remat"],
+         "MiB, one bf16 update of 64 pairs with --remat"),
+        ("plain_update_max_memory_allocated_mb", options["numbers"]["remat"]["peak_mib_plain"],
+         "MiB, the same update without --remat"),
+        ("options_phase_seconds", options["numbers"]["seconds"], "s"),
+    ] + [
+        (f"{name}_ms_per_step", rec["ms"], "ms over the step's 106 BN calls at 64 pairs, bf16"
+         + (f" (k=1 {rec['k1_kernel']} beside it: {rec['k1_ms']} ms)" if "k1_ms" in rec else ""))
+        for name, rec in options["numbers"]["options_bn_ms_per_step"].items()
     ] + [
         (f"{kind}_ms_per_{name}_update", rec["ms"], "ms over the update's 53 calls")
         for name, t in family["numbers"]["bn_ms_per_update"].items() for kind, rec in t.items()
@@ -2590,13 +3166,17 @@ def main(argv=None) -> int:
     ]:
         print(json.dumps({"metric": metric, "value": value, "unit": unit, **tag}), flush=True)
 
+    dp_ranks = {k: sum(r[k] for per_dtype in options["dp_launches"] for r in per_dtype)
+                for k in list(PER_STEP) + ["bn_stats_finish", "bn_bwd_finish"]}
     kernels = [{
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
-                    + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"],
+                    + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"]
+                    + options["launches"]["fusion"] + dp_ranks["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
-                             "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"]},
+                             "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"],
+                             "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"]},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
                                 + surface["by_variant"][k] for k in fusion.VARIANTS},
@@ -2612,10 +3192,15 @@ def main(argv=None) -> int:
         "source": BN_SOURCE,
         "replaces": replaces,
         "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind]
-                    + family["launches"][kind],
+                    + family["launches"][kind] + options["launches"][kind] + dp_ranks[kind],
         "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
-                             "cli": cli["launches"][kind], "model_family": family["launches"][kind]},
-        "max_abs_err": max(bn_err[kind], family["numbers"]["bn_max_abs_err_bf16"][kind]),
+                             "cli": cli["launches"][kind], "model_family": family["launches"][kind],
+                             "options": options["launches"][kind], "data_parallel_ranks": dp_ranks[kind]},
+        **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]]} if kind in DP_FINISH else {}),
+        **{f"{name}_ms": rec["ms"] for name, rec in options["numbers"]["options_bn_ms_per_step"].items()
+           if name.startswith(kind)},
+        "max_abs_err": max(bn_err[kind], family["numbers"]["bn_max_abs_err_bf16"][kind],
+                           options["numbers"]["prefix_bn_max_abs_err_bf16"].get(kind, 0.0)),
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],
         "bound_ms": bn_timing[kind]["bound_ms"],

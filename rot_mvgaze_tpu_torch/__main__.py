@@ -4,7 +4,12 @@ repository's ``main.py``."""
 
 import sys
 
+from rot_mvgaze_tpu_torch import parallel
 from rot_mvgaze_tpu_torch.cli.main import main
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        parallel.shutdown()  # leaves the process group torchrun's variables started
+    sys.exit(code)

@@ -16,7 +16,7 @@ match JAX's in distribution, not bit for bit.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -142,9 +142,31 @@ def apply_color_jitter(img: torch.Tensor, factors: torch.Tensor, order: torch.Te
     return img
 
 
-def color_jitter(img: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def _rows_of(draws, shard: Optional[Tuple[int, int]], n: int):
+    """``draws`` (tensors over a batch's rows) cut to this shard's ``n``
+    rows ``[offset, offset + n)``, or as they are without a shard."""
+    if shard is None:
+        return draws
+    return tuple(d[shard[0]:shard[0] + n] for d in draws)
+
+
+def _draw_rows(n: int, shard: Optional[Tuple[int, int]]) -> int:
+    """The rows to draw for: the global batch's under a shard ``(offset,
+    total)`` of ``n`` local rows."""
+    if shard is None:
+        return n
+    offset, total = shard
+    if not 0 <= offset <= total - n:
+        raise ValueError(f"shard {shard} does not hold {n} rows")
+    return total
+
+
+def color_jitter(img: torch.Tensor, generator: torch.Generator,
+                 shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """torchvision ColorJitter(1.0, 0.1, 0.1) per sample of (B, H, W, 3)."""
-    return apply_color_jitter(img, *draw_color_jitter(img.shape[0], generator, img.device))
+    n = img.shape[0]
+    draws = draw_color_jitter(_draw_rows(n, shard), generator, img.device)
+    return apply_color_jitter(img, *_rows_of(draws, shard, n))
 
 
 def affine_warp_nearest(
@@ -182,11 +204,13 @@ def draw_affine(
     return scale, tx, ty
 
 
-def random_affine(img: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def random_affine(img: torch.Tensor, generator: torch.Generator,
+                  shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """torchvision RandomAffine(degrees=0, scale=(0.99, 1.01), translate=(0.01,
     0.01)) per sample, nearest interpolation, zero fill."""
     b, h, w = img.shape[:3]
-    return affine_warp_nearest(img, *draw_affine(b, h, w, generator, img.device))
+    draws = draw_affine(_draw_rows(b, shard), h, w, generator, img.device)
+    return affine_warp_nearest(img, *_rows_of(draws, shard, b))
 
 
 def multi_erasing_mask(
@@ -224,12 +248,14 @@ def draw_multi_erasing(
 
 
 def random_multi_erasing(
-    img: torch.Tensor, generator: torch.Generator, p: float = 0.5
+    img: torch.Tensor, generator: torch.Generator, p: float = 0.5,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """With probability ``p`` per sample, multiply in a coarse-dropout mask
     (an hs x hs Bernoulli keep grid, nearest-upsampled)."""
     b, h, w = img.shape[:3]
-    gate, dot, prop, grid_u = draw_multi_erasing(b, generator, img.device, p)
+    draws = draw_multi_erasing(_draw_rows(b, shard), generator, img.device, p)
+    gate, dot, prop, grid_u = _rows_of(draws, shard, b)
     mask = multi_erasing_mask(dot, prop, grid_u, h, w) | ~gate[:, None, None]
     return img * mask[..., None].to(img.dtype)
 
@@ -239,14 +265,21 @@ def train_preprocess(
     generator: torch.Generator,
     image_size: int = 224,
     dtype: torch.dtype = torch.float32,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Train stack over a (B, H, W, 3) uint8 batch -> (B, S, S, 3) ``dtype``:
     to-float -> color jitter -> random affine -> resize -> normalize ->
     random multi-erasing, the reference's order. ``generator`` must live on
-    the images' device."""
+    the images' device.
+
+    ``shard=(offset, total)``: the batch is rows ``[offset, offset + B)`` of
+    a global batch of ``total`` rows (data parallelism). Every draw is made
+    for the global batch, as JAX draws over its global array with one key,
+    and this shard's rows of it are applied, so that the ranks together
+    augment as one process does over the whole batch."""
     x = to_float(img_u8, dtype)
-    x = color_jitter(x, generator)
-    x = random_affine(x, generator)
+    x = color_jitter(x, generator, shard)
+    x = random_affine(x, generator, shard)
     x = resize_bilinear(x, image_size)
     x = normalize(x)
-    return random_multi_erasing(x, generator)
+    return random_multi_erasing(x, generator, shard=shard)

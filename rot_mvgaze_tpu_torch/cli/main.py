@@ -6,6 +6,14 @@ for flag the JAX package's::
 
 It runs on the card (``--device cuda``, the default, raises without one)
 unless ``--device cpu`` is given, the one flag the JAX command line lacks.
+Under ``torchrun`` it trains data-parallel, one card per process::
+
+    torchrun --nproc_per_node N -m rot_mvgaze_tpu_torch --exp_name ... --dp true
+
+(``--dp false`` with more than one process is refused). The global batch
+and the test batch are split over the processes with the JAX command line's
+rounding, each process loading its shard (``process_shard``), and rank 0's
+output directory is everyone's.
 Dataset roots come from ``data_path.yaml`` at the repository root (or
 ``--data_path``), keys ``xgaze`` and ``mpiinv``; subject lists from
 ``configs/subject/*.yaml``; both are read by the port's own YAML reader
@@ -19,8 +27,9 @@ ablations (``--encode_rotmat``, ``--share_feature``, ``--ignore_rotmat``,
 ``--share_weights``) and ``--fuse_views``, and with ``--num_views > 2`` the
 V-view model, its loss, dataset (HDF5 only, as in JAX) and steps. The
 combinations the JAX command line refuses are refused, before any data is
-read. Options the port does not have yet are refused there too, each
-naming its ``ROADMAP.md`` item; ``--use_pallas_fusion`` and
+read. ``--bn_stat_subsample``, ``--remat`` and ``--profile_steps`` /
+``--profile_dir`` run as in JAX. Options the port does not have yet are
+refused before any data is read too, each naming its ``ROADMAP.md`` item; ``--use_pallas_fusion`` and
 ``--use_pallas_bn true|false`` parse, so JAX command lines run, and change
 nothing: on the card the port always runs its kernels.
 """
@@ -115,13 +124,16 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
                    help="accepted for JAX command lines; on the card the port always runs its kernels")
     p.add_argument("--use_pallas_bn", type=pallas_bn_arg, default=False,
                    help="accepted for JAX command lines (true/false); 'residual' is refused")
-    p.add_argument("--bn_stat_subsample", type=int, default=1, help="not ported: only 1")
+    p.add_argument("--bn_stat_subsample", type=int, default=1,
+                   help="train-mode BatchNorm statistics from the batch's first B//k images "
+                        "(1: every image)")
     p.add_argument("--freeze_bn", type=str2bool, default=False,
                    help="normalise with running statistics during training (a warm-start recipe)")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="moving average of the weights (0 disables); evaluation and "
                         "--export_torch use it")
-    p.add_argument("--remat", type=str2bool, default=False, help="not ported: only false")
+    p.add_argument("--remat", type=str2bool, default=False,
+                   help="recompute each backbone block in the backward (less activation memory)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="micro-batches per update (batch_size is the update's batch)")
     p.add_argument("--fuse_views", type=str2bool, default=False,
@@ -131,13 +143,15 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
                    help="load only the weights (the moving average when there is one) from "
                         "--ckpt_resume, with a fresh optimizer")
     p.add_argument("--auto_resume_dir", type=str, default=None,
-                   help="resume from the newest .pth.tar in this directory")
+                   help="resume from the newest checkpoint in this directory (the port's .pth.tar "
+                        "or the JAX package's .msgpack)")
     p.add_argument("--keep_last_n", type=int, default=0,
                    help="retain only the newest N checkpoints (0 = keep all)")
     p.add_argument("--export_torch", type=str, default=None,
                    help="after the run, save the bare reference state dict to this path")
     p.add_argument("--dp", type=str2bool, default=True,
-                   help="data parallelism is not ported: one card trains the global batch")
+                   help="data parallelism over the processes torchrun starts (one card each); "
+                        "false is refused with more than one process")
     p.add_argument("--spatial_partition", type=int, default=1, help="not ported: only 1")
     p.add_argument("--pairing", type=str, default="reference", choices=["reference", "rng"],
                    help="'reference': the reference's frozen pair index bit for bit; 'rng': a "
@@ -146,8 +160,10 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
                    help="in test mode, also report per-camera and per-subject error")
     p.add_argument("--xla_compiler_options", type=str, default=None,
                    help="no counterpart in the port: refused")
-    p.add_argument("--profile_steps", type=int, default=0, help="not ported: only 0")
-    p.add_argument("--profile_dir", type=str, default=None, help="not ported")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="one torch.profiler trace of this many train steps after the first")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="where the trace goes (default <output_dir>/profile; host_NN per process)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p
@@ -157,13 +173,9 @@ def unported_options(config: Any) -> list:
     """The options ``config`` sets that the port does not have, each with
     the ``ROADMAP.md`` item that holds it."""
     refused = [
-        ("--bn_stat_subsample > 1 (ROADMAP A17)", config.bn_stat_subsample > 1),
-        ("--remat (ROADMAP A18)", config.remat),
         ("--spatial_partition > 1 (ROADMAP A13)", config.spatial_partition > 1),
         ("--use_pallas_bn residual (ROADMAP North star: on the card every train-mode BN runs "
          "the port's kernels)", config.use_pallas_bn == "residual"),
-        ("--profile_steps/--profile_dir (ROADMAP A19)",
-         bool(config.profile_steps) or config.profile_dir is not None),
         ("--xla_compiler_options (no counterpart in the port)", config.xla_compiler_options is not None),
     ]
     return [flag for flag, on in refused if on]
@@ -237,15 +249,21 @@ def configure_dataset(
     return out[0], out[1]
 
 
-def build_loaders(config: Any) -> Tuple[Any, Any]:
+def build_loaders(config: Any, process_shard: Optional[tuple] = None) -> Tuple[Any, Any]:
     """The train and test loaders of ``config``: with ``native_loader``, the
     packs through ``NativeBatchLoader`` over the C++ pool; without ``g++``,
     or if the packs cannot be used, the HDF5 archives through
     ``BatchLoader``, as the JAX command line falls back. Which path serves
     is printed. V-view batches (``--num_views > 2``) come from the HDF5
-    archives, as in the JAX command line: the packs hold stereo pairs."""
+    archives, as in the JAX command line: the packs hold stereo pairs.
+    ``process_shard=(rank, world)``: each loader yields this process's
+    shard of every epoch, in batches of ``batch_size // world`` and
+    ``test_batch_size // world``."""
     from rot_mvgaze_tpu_torch.data.native import NativeBatchLoader, NativePool
     from rot_mvgaze_tpu_torch.data.pipeline import BatchLoader
+
+    world = process_shard[1] if process_shard else 1
+    bs, test_bs = config.batch_size // world, config.test_batch_size // world
 
     data_paths = _load_data_paths(config.data_path)
     if config.num_views > 2 and config.native_loader:
@@ -257,19 +275,19 @@ def build_loaders(config: Any) -> Tuple[Any, Any]:
             train_ds, test_ds = configure_dataset(config.exp_name, data_paths, seed=config.seed,
                                                   pairing=config.pairing, packed=True)
             # both built before either is returned: a failure falls back as a pair
-            loaders = (NativeBatchLoader(train_ds, config.batch_size, shuffle=True, seed=config.seed,
-                                         drop_last=True),
-                       NativeBatchLoader(test_ds, config.test_batch_size))
+            loaders = (NativeBatchLoader(train_ds, bs, shuffle=True, seed=config.seed,
+                                         drop_last=True, process_shard=process_shard),
+                       NativeBatchLoader(test_ds, test_bs, process_shard=process_shard))
             print("using native packed-cache loader (C++ pool)", flush=True)
             return loaders
         except (OSError, ValueError, ImportError) as e:
             print(f"native loader unavailable ({e!r}); using the h5py loader", flush=True)
     train_ds, test_ds = configure_dataset(config.exp_name, data_paths, seed=config.seed,
                                           pairing=config.pairing, n_views=config.num_views)
-    return (BatchLoader(train_ds, batch_size=config.batch_size, shuffle=True, seed=config.seed,
-                        drop_last=True, num_threads=config.num_workers),
-            BatchLoader(test_ds, batch_size=config.test_batch_size, shuffle=False,
-                        num_threads=config.num_workers))
+    return (BatchLoader(train_ds, batch_size=bs, shuffle=True, seed=config.seed,
+                        drop_last=True, num_threads=config.num_workers, process_shard=process_shard),
+            BatchLoader(test_ds, batch_size=test_bs, shuffle=False,
+                        num_threads=config.num_workers, process_shard=process_shard))
 
 
 def refused_combinations(config: Any) -> Optional[str]:
@@ -304,11 +322,17 @@ def refused_combinations(config: Any) -> Optional[str]:
     return None
 
 
-def check_config(config: Any) -> None:
+def check_config(config: Any, world: int = 1) -> None:
     """The JAX command line's checks, and the refusal of unported options,
-    all before any data is read (``SystemExit`` naming the flag)."""
+    all before any data is read (``SystemExit`` naming the flag). ``world``:
+    the processes the run is started over (torchrun's ``WORLD_SIZE``)."""
     if config.num_views < 2:
         raise SystemExit(f"--num_views must be >= 2, got {config.num_views}")
+    if world > 1 and not config.dp:
+        raise SystemExit(f"--dp false under {world} processes: each process would train its own "
+                         f"model on its shard; start one process, or pass --dp true")
+    if config.bn_stat_subsample < 1:
+        raise SystemExit(f"--bn_stat_subsample must be >= 1, got {config.bn_stat_subsample}")
     bad = unported_options(config)
     if bad:
         raise SystemExit(f"not ported yet: {', '.join(bad)}")
@@ -338,32 +362,54 @@ def check_config(config: Any) -> None:
 def build_experiment(config: Any):
     """Datasets, loaders, model, loss and ``Trainer`` of ``config`` (a
     namespace from :func:`get_parser`; the JAX command line's
-    ``build_experiment``, on one device)."""
+    ``build_experiment``), on one process or, under torchrun, data-parallel
+    over its processes (one card each)."""
     import torch
 
+    from rot_mvgaze_tpu_torch import parallel
     from rot_mvgaze_tpu_torch.losses import IterationLoss, MultiViewL1Loss, StereoL1Loss
     from rot_mvgaze_tpu_torch.models import FeatRotationMultiView, FeatRotationSymm
     from rot_mvgaze_tpu_torch.train import Trainer
     from rot_mvgaze_tpu_torch.utils.device import resolve_device
     from rot_mvgaze_tpu_torch.utils.seed import set_seed
 
-    check_config(config)
+    check_config(config, parallel.configured_world_size())
     device = resolve_device(config.device)
-    if device.type == "cuda" and config.dp and torch.cuda.device_count() > 1:
-        print(f"--dp: {torch.cuda.device_count()} cards visible, but data parallelism is not "
-              f"ported (ROADMAP A13); training on one card, global batch {config.batch_size}",
+    parallel.initialize(device.type)
+    world = parallel.process_count()
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", parallel.local_rank())
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} cards visible; this process trains on one (start "
+              f"the command line under torchrun --nproc_per_node N for data parallelism)",
               flush=True)
+    if world > 1:
+        # every process writes under rank 0's (time-stamped) directory
+        config.output_dir = parallel.broadcast_object(config.output_dir)
     ga = max(config.grad_accum, 1)
-    if ga > 1 and config.batch_size % ga:
+    if world > 1:
+        # the batch divides over the ranks; with gradient accumulation each
+        # of the A micro-batches must too -> world * A
+        for attr, div in (("batch_size", world * ga), ("test_batch_size", world)):
+            bs = getattr(config, attr)
+            if bs % div:
+                rounded = max(bs // div, 1) * div
+                print(f"{attr} {bs} -> {rounded} (multiple of {div})")
+                setattr(config, attr, rounded)
+        print(f"data-parallel: {world} processes, rank {parallel.process_index()} on {device}; "
+              f"global batch {config.batch_size}", flush=True)
+    elif ga > 1 and config.batch_size % ga:
         rounded = max(config.batch_size // ga, 1) * ga
         print(f"batch_size {config.batch_size} -> {rounded} (multiple of grad_accum={ga})")
         config.batch_size = rounded
     set_seed(config.seed, "cpu")
-    train_loader, test_loader = build_loaders(config)
+    process_shard = (parallel.process_index(), world) if world > 1 else None
+    train_loader, test_loader = build_loaders(config, process_shard)
     if config.num_views > 2:
         model = FeatRotationMultiView(
             backbone_depth=config.backbone_depth, num_iter=config.num_iter,
             share_weights=config.share_weights, ignore_rotmat=config.ignore_rotmat,
+            remat=config.remat,
         )
         # view 0 weighted 1.0, every partner view reference_decay: StereoL1Loss at V=2
         loss = MultiViewL1Loss(rel_weight=0.01, reference_decay=1.0)
@@ -372,7 +418,8 @@ def build_experiment(config: Any):
             backbone_depth=config.backbone_depth, num_iter=config.num_iter,
             share_weights=config.share_weights, encode_rotmat=config.encode_rotmat,
             share_feature=config.share_feature, ignore_rotmat=config.ignore_rotmat,
-            fuse_views=config.fuse_views,
+            fuse_views=config.fuse_views, bn_stat_subsample=config.bn_stat_subsample,
+            remat=config.remat,
         )
         loss = StereoL1Loss(rel_weight=0.01, reference_decay=1.0, distance_metric="angular_error")
     metrics = IterationLoss(loss=loss, iter_decay=0.5)

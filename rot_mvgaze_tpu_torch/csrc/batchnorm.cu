@@ -9,6 +9,19 @@
 //   bn_bwd_dx      dx = scale*rstd*(g' - sum g'/N - xhat*sum g'xhat/N)
 //                  [+ (gmean + 2*gvar*(x-mean))/N], optionally dres = g'
 //
+// Two options change which rows the statistics cover, each with the same
+// rounding as the default path:
+// - a row prefix ("ghost" statistics, the JAX package's stat_subsample):
+//   bn_stats runs on the first Np rows, bn_bwd_reduce divides its sums over
+//   all rows by a count given apart from its row count, and bn_bwd_dx
+//   applies the statistics terms to rows below Np only (the others get
+//   scale*rstd*g');
+// - statistics over several processes (data parallelism): bn_stats and
+//   bn_bwd_reduce write their per-channel f64 sums (and bn_stats its row
+//   count) instead of finishing them; the caller all-reduces them, and
+//   bn_stats_finish / bn_bwd_finish form the per-channel results from the
+//   reduced sums with the same arithmetic as the in-kernel finish.
+//
 // x, res, y, g, dx and dres share one dtype T (bf16 or f32); every per-
 // channel vector is f32. Elementwise arithmetic is f32 with every product
 // and sum rounded on its own (the __f*_rn intrinsics: no fused multiply-add
@@ -305,14 +318,36 @@ __device__ __forceinline__ float elem(const uint4& raw, int e) {
 // forward
 // ---------------------------------------------------------------------------
 
-struct StatsArgs {
-  const void* x;
+// bn_stats' per-channel results from the sums: "/ N" is a product with 1/N
+// rounded to f64, as PyTorch divides a tensor by a Python number on the
+// card, so that the plain version rounds alike.
+struct StatsOut {
   const float* scale;
   const float* bias;
-  double* ws;
-  int* counters;
   float *mean, *var, *rstd, *a, *b;
   double eps;
+};
+
+__device__ __forceinline__ void finish_stats(double ts, double tq, double n, int c, const StatsOut& o) {
+  const double inv_n = 1.0 / n;
+  const double mean = __dmul_rn(ts, inv_n);
+  const double var = fmax(__dsub_rn(__dmul_rn(tq, inv_n), __dmul_rn(mean, mean)), 0.0);
+  const float rstd = (float)(1.0 / sqrt(__dadd_rn(var, o.eps)));
+  const float a = __fmul_rn(o.scale[c], rstd);
+  o.mean[c] = (float)mean;
+  o.var[c] = (float)var;
+  o.rstd[c] = rstd;
+  o.a[c] = a;
+  o.b[c] = __fsub_rn(o.bias[c], __fmul_rn((float)mean, a));
+}
+
+struct StatsArgs {
+  const void* x;
+  double* ws;
+  int* counters;
+  StatsOut out;
+  // non-null: write (sum x (C), sum x^2 (C), rows) here instead of finishing
+  double* sums;
 };
 
 // bn_stats' design (header): kStatsRows rows of 16-byte loads in flight per
@@ -399,20 +434,21 @@ __global__ void __launch_bounds__(NTR, kStatsMinBlocks) bn_stats_kernel(const Sh
   if (!reduce_partials<V>(s, sum, sq, p.ws, p.counters, ts, tq)) return;
   const int c = blockIdx.y * s.lanes * V + threadIdx.x;
   if (threadIdx.x < s.lanes * V && c < s.C) {
-    // "/ N" is a product with 1/N rounded to f64, as PyTorch divides a
-    // tensor by a Python number on the card, so that the plain version
-    // rounds alike
-    const double inv_n = 1.0 / (double)s.rows;
-    const double mean = __dmul_rn(ts, inv_n);
-    const double var = fmax(__dsub_rn(__dmul_rn(tq, inv_n), __dmul_rn(mean, mean)), 0.0);
-    const float rstd = (float)(1.0 / sqrt(__dadd_rn(var, p.eps)));
-    const float a = __fmul_rn(p.scale[c], rstd);
-    p.mean[c] = (float)mean;
-    p.var[c] = (float)var;
-    p.rstd[c] = rstd;
-    p.a[c] = a;
-    p.b[c] = __fsub_rn(p.bias[c], __fmul_rn((float)mean, a));
+    if (p.sums != nullptr) {
+      p.sums[c] = ts;
+      p.sums[s.C + c] = tq;
+      if (c == 0) p.sums[2 * s.C] = (double)s.rows;
+    } else {
+      finish_stats(ts, tq, (double)s.rows, c, p.out);
+    }
   }
+}
+
+// bn_stats' finish from reduced sums (sum x (C), sum x^2 (C), rows): one
+// thread per channel.
+__global__ void __launch_bounds__(NTR) bn_stats_finish_kernel(const double* sums, int C, const StatsOut o) {
+  const int c = blockIdx.x * NTR + threadIdx.x;
+  if (c < C) finish_stats(sums[c], sums[C + c], sums[2 * C], c, o);
 }
 
 struct ApplyArgs {
@@ -465,6 +501,9 @@ struct BwdReduceArgs {
   double* ws;
   int* counters;
   float *dscale, *dbias, *k, *mg, *mgx;
+  double count;  // the divisor of mg and mgx: the rows the statistics cover
+  // non-null: write (sum g' (C), sum g'*xhat (C)) here instead of mg, mgx
+  double* sums;
 };
 
 // Rows in flight per thread in bn_bwd_reduce: 2 rows of 16 bytes of g, x
@@ -525,12 +564,28 @@ __global__ void __launch_bounds__(NTR, kBwdReduceMinBlocks) bn_bwd_reduce_kernel
   if (!reduce_partials<V>(s, sg, sgx, p.ws, p.counters, tg, tgx)) return;
   const int c = blockIdx.y * s.lanes * V + threadIdx.x;
   if (threadIdx.x < s.lanes * V && c < s.C) {
-    const double n = (double)s.rows;
     p.dbias[c] = (float)tg;
     p.dscale[c] = (float)tgx;
     p.k[c] = __fmul_rn(p.scale[c], p.rstd[c]);
-    p.mg[c] = (float)(tg / n);
-    p.mgx[c] = (float)(tgx / n);
+    if (p.sums != nullptr) {
+      p.sums[c] = tg;
+      p.sums[s.C + c] = tgx;
+    } else {
+      p.mg[c] = (float)(tg / p.count);
+      p.mgx[c] = (float)(tgx / p.count);
+    }
+  }
+}
+
+// bn_bwd_reduce's finish from reduced sums (sum g' (C), sum g'*xhat (C)) and
+// the forward's reduced row count (*count): one thread per channel.
+__global__ void __launch_bounds__(NTR) bn_bwd_finish_kernel(const double* sums, const double* count,
+                                                            int C, float* mg, float* mgx) {
+  const int c = blockIdx.x * NTR + threadIdx.x;
+  if (c < C) {
+    const double n = *count;
+    mg[c] = (float)(sums[c] / n);
+    mgx[c] = (float)(sums[C + c] / n);
   }
 }
 
@@ -547,6 +602,8 @@ struct BwdDxArgs {
   const float* gvar;   // cotangent of the returned var, or null
   void* dx;
   void* dres;  // g' (the residual's gradient), or null
+  long long stat_rows;  // rows [0, stat_rows) take the statistics terms
+  double count;         // the divisor of the gmean / gvar terms
 };
 
 // bn_bwd_dx streams 3 (rows, C) inputs (g, x and, under ReLU, y) and writes
@@ -602,11 +659,12 @@ __device__ __forceinline__ uint4 load_last(const T* __restrict__ base, long long
 
 // U rows r, r + rstep, ... of one thread: every row's loads first, then
 // each row's arithmetic and stores. cst is the table (kWidth floats per
-// constant), j0 this thread's first channel in it.
-template <typename T, bool RELU, bool GSTATS, bool VEC, int U, int kWidth>
+// constant), j0 this thread's first channel in it. PREFIX: rows from
+// stat_rows on get k*g' alone.
+template <typename T, bool RELU, bool GSTATS, bool VEC, bool PREFIX, int U, int kWidth>
 __device__ __forceinline__ void bwd_dx_rows(const DxRows<T>& q, const float* cst, int j0, int c0,
                                             int C, long long r, int rstep, float inv_n,
-                                            bool gm_on, bool gv_on) {
+                                            bool gm_on, bool gv_on, long long stat_rows) {
   constexpr int V = Width<T>::V;
   uint4 graw[U], xraw[U], yraw[U];
 #pragma unroll
@@ -626,6 +684,17 @@ __device__ __forceinline__ void bwd_dx_rows(const DxRows<T>& q, const float* cst
       if (RELU) gv[e] = elem<T>(yraw[u], e) > 0.f ? gv[e] : 0.f;
     }
     if (RELU && q.dres != nullptr) store_v<T>(q.dres, off, gv, c0, C, VEC);
+    if (PREFIX && r + (long long)u * rstep >= stat_rows) {
+#pragma unroll
+      for (int h = 0; h < V; h += 4) {
+        const float4 k4 = lds4(cst + kK * kWidth + j0 + h);
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[h + e] = __fmul_rn(kk[e], gv[h + e]);
+      }
+      store_v<T>(q.dx, off, out, c0, C, VEC);
+      continue;
+    }
 #pragma unroll
     for (int h = 0; h < V; h += 4) {
       const float4 m4 = lds4(cst + kMean * kWidth + j0 + h), rs4 = lds4(cst + kRstd * kWidth + j0 + h);
@@ -658,14 +727,15 @@ __device__ __forceinline__ void bwd_dx_rows(const DxRows<T>& q, const float* cst
 
 // GSTATS: gmean or gvar (the cotangents of the returned statistics) given.
 // VEC: 16-byte loads and stores (C a multiple of the vector, aligned
-// pointers); else the masked scalar path, one row at a time.
-template <typename T, bool RELU, bool GSTATS, bool VEC>
+// pointers); else the masked scalar path, one row at a time. PREFIX: the
+// statistics cover rows [0, stat_rows) only (stat_rows < rows).
+template <typename T, bool RELU, bool GSTATS, bool VEC, bool PREFIX>
 __global__ void __launch_bounds__(NT, kBwdDxMinBlocks) bn_bwd_dx_kernel(const Shape s, const BwdDxArgs p) {
   constexpr int V = Width<T>::V;
   constexpr int U = VEC ? kBwdDxRows : 1;
   constexpr int kWidth = 32 * V;  // channels of the widest tile (32 lanes)
   __shared__ __align__(16) float cst[kDxConsts * kWidth];
-  const float inv_n = __frcp_rn((float)s.rows);
+  const float inv_n = __frcp_rn((float)p.count);
   const int width = s.lanes * V, tile0 = blockIdx.y * width;
   for (int i = threadIdx.x; i < width; i += NT) {
     const int c = tile0 + i;
@@ -694,9 +764,11 @@ __global__ void __launch_bounds__(NT, kBwdDxMinBlocks) bn_bwd_dx_kernel(const Sh
   const long long rows = (k.r_end - k.r_begin + k.rstep - 1) / k.rstep;
   long long r = k.r_begin;
   for (long long i = 0; i + U <= rows; i += U, r += (long long)U * k.rstep)
-    bwd_dx_rows<T, RELU, GSTATS, VEC, U, kWidth>(q, cst, j0, k.c0, s.C, r, k.rstep, inv_n, gm_on, gv_on);
+    bwd_dx_rows<T, RELU, GSTATS, VEC, PREFIX, U, kWidth>(q, cst, j0, k.c0, s.C, r, k.rstep, inv_n, gm_on,
+                                                         gv_on, p.stat_rows);
   for (; r < k.r_end; r += k.rstep)
-    bwd_dx_rows<T, RELU, GSTATS, VEC, 1, kWidth>(q, cst, j0, k.c0, s.C, r, k.rstep, inv_n, gm_on, gv_on);
+    bwd_dx_rows<T, RELU, GSTATS, VEC, PREFIX, 1, kWidth>(q, cst, j0, k.c0, s.C, r, k.rstep, inv_n, gm_on,
+                                                         gv_on, p.stat_rows);
 }
 
 dim3 grid_of(const Shape& s, int V) {
@@ -715,13 +787,21 @@ int check_shape(const Shape& s, bool reduce) {
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
-template <typename T, bool RELU, bool GSTATS>
+template <typename T, bool RELU, bool GSTATS, bool PREFIX>
 void launch_bwd_dx(const Shape& s, const BwdDxArgs& p, cudaStream_t st) {
   const dim3 grid = grid_of(s, Width<T>::V);
   if (s.vec)
-    bn_bwd_dx_kernel<T, RELU, GSTATS, true><<<grid, NT, 0, st>>>(s, p);
+    bn_bwd_dx_kernel<T, RELU, GSTATS, true, PREFIX><<<grid, NT, 0, st>>>(s, p);
   else
-    bn_bwd_dx_kernel<T, RELU, GSTATS, false><<<grid, NT, 0, st>>>(s, p);
+    bn_bwd_dx_kernel<T, RELU, GSTATS, false, PREFIX><<<grid, NT, 0, st>>>(s, p);
+}
+
+template <typename T, bool RELU, bool GSTATS>
+void launch_bwd_dx(const Shape& s, const BwdDxArgs& p, cudaStream_t st) {
+  if (p.stat_rows < s.rows)
+    launch_bwd_dx<T, RELU, GSTATS, true>(s, p, st);
+  else
+    launch_bwd_dx<T, RELU, GSTATS, false>(s, p, st);
 }
 
 template <typename T>
@@ -766,13 +846,15 @@ int mvgaze_bn_reduce_config(int* threads, int* max_lanes, int* group) {
 // tensors). For the reductions, ws holds 2*(chunks + groups)*C doubles and
 // counters (tiles, groups + 1) ints, zero on entry and left zero.
 
+// sums: null, or 2*C + 1 doubles that take (sum x, sum x^2, rows) in place
+// of the five outputs (which may then be null).
 int mvgaze_bn_stats(int dtype, const void* x, const float* scale, const float* bias, double* ws,
                     int* counters, float* mean, float* var, float* rstd, float* a, float* b,
-                    long long rows, int C, int lanes, long long chunk_rows, int chunks, int vec,
-                    int groups, double eps, void* stream) {
+                    double* sums, long long rows, int C, int lanes, long long chunk_rows, int chunks,
+                    int vec, int groups, double eps, void* stream) {
   const Shape s{rows, C, lanes, chunk_rows, chunks, vec, groups};
   if (int err = check_shape(s, true)) return err;
-  const StatsArgs p{x, scale, bias, ws, counters, mean, var, rstd, a, b, eps};
+  const StatsArgs p{x, ws, counters, StatsOut{scale, bias, mean, var, rstd, a, b, eps}, sums};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     bn_stats_kernel<bf16><<<grid_of(s, Width<bf16>::V), NTR, 0, st>>>(s, p);
@@ -780,6 +862,17 @@ int mvgaze_bn_stats(int dtype, const void* x, const float* scale, const float* b
     bn_stats_kernel<float><<<grid_of(s, Width<float>::V), NTR, 0, st>>>(s, p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return last_error();
+}
+
+// bn_stats' outputs from reduced sums (2*C + 1 doubles: sum x, sum x^2,
+// rows).
+int mvgaze_bn_stats_finish(const double* sums, const float* scale, const float* bias, float* mean,
+                           float* var, float* rstd, float* a, float* b, int C, double eps,
+                           void* stream) {
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const StatsOut o{scale, bias, mean, var, rstd, a, b, eps};
+  bn_stats_finish_kernel<<<(C + NTR - 1) / NTR, NTR, 0, static_cast<cudaStream_t>(stream)>>>(sums, C, o);
   return last_error();
 }
 
@@ -811,14 +904,19 @@ int mvgaze_bn_apply(int dtype, const void* x, const void* res, const float* a, c
   return last_error();
 }
 
+// count: the divisor of mg and mgx (rows, or a prefix's rows). sums: null,
+// or 2*C doubles that take (sum g', sum g'*xhat) in place of mg and mgx
+// (which may then be null).
 int mvgaze_bn_bwd_reduce(int dtype, const void* g, const void* y, const void* x,
                          const float* mean, const float* rstd, const float* scale, double* ws,
                          int* counters, float* dscale, float* dbias, float* k, float* mg,
-                         float* mgx, long long rows, int C, int lanes, long long chunk_rows,
-                         int chunks, int vec, int groups, int relu, void* stream) {
+                         float* mgx, double* sums, double count, long long rows, int C, int lanes,
+                         long long chunk_rows, int chunks, int vec, int groups, int relu,
+                         void* stream) {
   const Shape s{rows, C, lanes, chunk_rows, chunks, vec, groups};
   if (int err = check_shape(s, true)) return err;
-  const BwdReduceArgs p{g, y, x, mean, rstd, scale, ws, counters, dscale, dbias, k, mg, mgx};
+  if (!(count > 0.0)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdReduceArgs p{g, y, x, mean, rstd, scale, ws, counters, dscale, dbias, k, mg, mgx, count, sums};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const dim3 grid = grid_of(s, Width<bf16>::V);
@@ -834,14 +932,27 @@ int mvgaze_bn_bwd_reduce(int dtype, const void* g, const void* y, const void* x,
   return last_error();
 }
 
+// mg and mgx from reduced sums (2*C doubles: sum g', sum g'*xhat) over the
+// reduced row count at *count (bn_stats' sums[2*C]).
+int mvgaze_bn_bwd_finish(const double* sums, const double* count, float* mg, float* mgx, int C,
+                         void* stream) {
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  bn_bwd_finish_kernel<<<(C + NTR - 1) / NTR, NTR, 0, static_cast<cudaStream_t>(stream)>>>(sums, count, C,
+                                                                                          mg, mgx);
+  return last_error();
+}
+
+// stat_rows: rows [0, stat_rows) take the statistics terms (rows: all of
+// them); count: the divisor of the gmean / gvar terms.
 int mvgaze_bn_bwd_dx(int dtype, const void* g, const void* y, const void* x, const float* mean,
                      const float* rstd, const float* k, const float* mg, const float* mgx,
                      const float* gmean, const float* gvar, void* dx, void* dres,
-                     long long rows, int C, int lanes, long long chunk_rows, int chunks,
-                     int vec, int relu, void* stream) {
+                     long long stat_rows, double count, long long rows, int C, int lanes,
+                     long long chunk_rows, int chunks, int vec, int relu, void* stream) {
   const Shape s{rows, C, lanes, chunk_rows, chunks, vec, 0};
   if (int err = check_shape(s, false)) return err;
-  const BwdDxArgs p{g, y, x, mean, rstd, k, mg, mgx, gmean, gvar, dx, dres};
+  if (stat_rows < 0 || stat_rows > rows || !(count > 0.0)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdDxArgs p{g, y, x, mean, rstd, k, mg, mgx, gmean, gvar, dx, dres, stat_rows, count};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gstats = gmean != nullptr || gvar != nullptr;
   if (dtype == 1)

@@ -42,7 +42,7 @@ class FeatRotationMultiView(nn.Module):
     """V-view fusion with the default fuser and the ``share_weights`` and
     ``ignore_rotmat`` (unrotated partners) ablations. ``encode_rotmat`` and
     ``share_feature`` have no V-view counterpart, as in the JAX package. V
-    is the input's, at least 2. ``int8_backbone`` as in
+    is the input's, at least 2. ``int8_backbone`` and ``remat`` as in
     ``FeatRotationSymm``."""
 
     def __init__(
@@ -53,6 +53,7 @@ class FeatRotationMultiView(nn.Module):
         ignore_rotmat: bool = False,
         num_feat_vec: int = NUM_FEAT_VEC,
         int8_backbone: Any = False,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         self.backbone_depth = backbone_depth
@@ -61,7 +62,8 @@ class FeatRotationMultiView(nn.Module):
         self.ignore_rotmat = ignore_rotmat
         self.num_feat_vec = num_feat_vec
         self.int8_backbone = int8_backbone
-        backbone = BACKBONES[backbone_depth](int8=int8_backbone)
+        self.remat = remat
+        backbone = BACKBONES[backbone_depth](int8=int8_backbone, remat=remat)
         fc_dim = backbone.feature_dim
         self._feat_extractor = nn.Sequential(backbone)
         self._lifter = Feat3dLifter(fc_dim, num_feat_vec)

@@ -13,6 +13,15 @@ fused residual add and ReLU:
   update;
 - eval: ``nn.BatchNorm2d``'s own eval forward, then the add, then ReLU.
 
+Two attributes, set by their owners rather than the constructor, change the
+train-mode statistics: ``stat_subsample`` (the JAX package's
+``TorchBatchNorm.stat_subsample``: the first ``B // k`` images) and
+``group`` (a ``torch.distributed`` process group: the global batch's
+statistics, and the running variance unbiased with the global count).
+Inside :func:`recomputing` (the backward's recompute of a checkpointed
+block under ``remat``) the train forward changes no buffer, as JAX's
+recompute changes no state.
+
 :class:`IntensityBatchNorm` is the ``share_feature`` fuser's normaliser of
 rotatable features (counterpart of ``IntensityBatchNorm`` in
 ``rot_mvgaze_tpu/models/rot_mv.py``), plain PyTorch as in the JAX package.
@@ -20,13 +29,33 @@ rotatable features (counterpart of ``IntensityBatchNorm`` in
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rot_mvgaze_tpu_torch.ops.batchnorm import fused_batchnorm_act
+from rot_mvgaze_tpu_torch.ops.batchnorm import fused_batchnorm_act, stat_rows
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """A recompute of a forward already taken (``remat``'s backward): the
+    train-mode normalisers run as they did and leave their buffers alone."""
+    prev = getattr(_state, "recomputing", False)
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = prev
+
+
+def is_recomputing() -> bool:
+    return getattr(_state, "recomputing", False)
 
 
 class BatchNormAct(nn.BatchNorm2d):
@@ -36,6 +65,8 @@ class BatchNormAct(nn.BatchNorm2d):
     def __init__(self, channels: int, relu: bool = False) -> None:
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.relu = relu
+        self.stat_subsample = 1
+        self.group = None
 
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
@@ -45,12 +76,14 @@ class BatchNormAct(nn.BatchNorm2d):
             if residual is not None:
                 out = out + residual
             return F.relu(out) if self.relu else out
-        n = x.numel() // x.shape[1]
+        n, _ = stat_rows(x.shape[0], x.shape[2] * x.shape[3], self.stat_subsample, self.group)
         if residual is not None:
             residual = residual.to(x.dtype)
         y, mean, var = fused_batchnorm_act(
-            x, self.weight, self.bias, residual, self.eps, self.relu
+            x, self.weight, self.bias, residual, self.eps, self.relu, self.stat_subsample, self.group
         )
+        if is_recomputing():
+            return y
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             # momentum None: cumulative average, as nn.BatchNorm2d
@@ -76,20 +109,33 @@ class IntensityBatchNorm(nn.Module):
     floored at ``eps`` before the square root) moves the buffer by
     ``momentum`` *before* the division, which uses the new value; in eval
     the buffer as it is. The divisor is ``running + eps`` in ``x``'s dtype.
+    With ``group`` set (a ``torch.distributed`` process group) the std is the
+    global batch's: the ranks' sums of the intensities and their squares,
+    and their counts, all-reduced in float64.
     """
 
     def __init__(self, n_channels: int, momentum: float = 0.05, eps: float = 1e-4) -> None:
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = None
         self.register_buffer("running_mean", torch.ones(1, 1, n_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and not is_recomputing():
             with torch.no_grad():
                 intensity = torch.linalg.vector_norm(x.float(), dim=-2, keepdim=True)
-                mean = intensity.mean(dim=0, keepdim=True)
-                mean_sq = intensity.square().mean(dim=0, keepdim=True)
+                if self.group is None:
+                    mean = intensity.mean(dim=0, keepdim=True)
+                    mean_sq = intensity.square().mean(dim=0, keepdim=True)
+                else:
+                    c = intensity.shape[-1]
+                    wide = intensity.double()
+                    sums = torch.cat([wide.sum(dim=0).reshape(-1), wide.square().sum(dim=0).reshape(-1),
+                                      wide.new_full((1,), float(wide.shape[0]))])
+                    torch.distributed.all_reduce(sums, group=self.group)
+                    mean = (sums[:c] / sums[-1]).float().reshape(1, 1, c)
+                    mean_sq = (sums[c:2 * c] / sums[-1]).float().reshape(1, 1, c)
                 std = torch.sqrt(torch.clamp(mean_sq - mean.square(), min=self.eps))
                 self.running_mean.copy_(
                     self.running_mean * (1 - self.momentum) + std * self.momentum

@@ -12,7 +12,11 @@ applies its own ReLU, and a block's last one also adds the residual, as the
 JAX package's ``ConvBN`` does: in train mode that is one fused op
 (``ops/batchnorm.py``), in eval ``nn.BatchNorm2d`` then add then ReLU.
 ``int8`` makes every conv a :class:`QuantConv2d` (eval only; the state dict
-is the float model's). Remat and spatial partitioning are not ported.
+is the float model's). ``bn_stat_subsample`` sets every BatchNorm's
+train-mode statistics to the batch's first ``B // k`` images, and ``remat``
+recomputes each residual block in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does; the
+stem is not recomputed. Spatial partitioning is not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ from typing import Any, Iterator, Optional, Sequence, Type, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+from rot_mvgaze_tpu_torch.models.norm import BatchNormAct, recomputing
 from rot_mvgaze_tpu_torch.ops import quant
 
 INT8_MODES = (False, True, "static")
@@ -178,10 +183,20 @@ class Bottleneck(nn.Module):
         return self.bn3(self.conv3(out), identity)
 
 
+def _recompute_context():
+    """``checkpoint``'s context_fn: nothing around the first forward, and
+    :func:`recomputing` around the backward's recompute, so that the
+    recomputed BatchNorms leave their running statistics and
+    ``num_batches_tracked`` as the first forward left them (the recompute
+    launches bn_stats and bn_apply again, with the same statistics)."""
+    return contextlib.nullcontext(), recomputing()
+
+
 class ResNet(nn.Module):
     """ResNet backbone over NHWC input returning pooled features (B, C).
     ``int8`` (False, True or "static") selects the eval convs
-    (:class:`QuantConv2d`)."""
+    (:class:`QuantConv2d`); ``bn_stat_subsample`` and ``remat`` as the JAX
+    backbone's fields (module docstring)."""
 
     def __init__(
         self,
@@ -191,11 +206,17 @@ class ResNet(nn.Module):
         width_per_group: int = 64,
         num_classes: int = 1000,
         int8: Any = False,
+        bn_stat_subsample: int = 1,
+        remat: bool = False,
     ) -> None:
         super().__init__()
         if int8 not in INT8_MODES:
             raise ValueError(f"int8 must be one of {INT8_MODES}, got {int8!r}")
+        if bn_stat_subsample < 1:
+            raise ValueError(f"bn_stat_subsample must be >= 1, got {bn_stat_subsample}")
         self.int8 = int8
+        self.bn_stat_subsample = bn_stat_subsample
+        self.remat = remat
         self.conv1 = _conv(3, 64, 7, 2, int8=int8)
         self.bn1 = BatchNormAct(64, relu=True)
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
@@ -224,11 +245,20 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 # torchvision's init, as the JAX package's conv_kaiming_init
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+            elif isinstance(m, BatchNormAct):
+                m.stat_subsample = bn_stat_subsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
         x = self.maxpool(self.bn1(self.conv1(x)))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                if remat:
+                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                                   context_fn=_recompute_context)
+                else:
+                    x = block(x)
         return x.mean(dim=(2, 3))
 
 

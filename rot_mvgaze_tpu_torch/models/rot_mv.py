@@ -162,7 +162,10 @@ class FeatRotationSymm(nn.Module):
 
     ``int8_backbone`` (False, True or "static") runs the backbone's convs
     on the int8 path in eval (``models/resnet.py::QuantConv2d``); the state
-    dict is unchanged.
+    dict is unchanged. ``bn_stat_subsample`` and ``remat`` are the
+    backbone's (``models/resnet.py``); ``bn_stat_subsample > 1`` with
+    ``fuse_views`` is refused, as in the JAX package: the prefix of the
+    stacked [view 0; view 1] batch would be view 0's rows alone.
 
     ``share_weights`` reuses one fuser and one head across iterations,
     aliased as the reference does (``ModuleList([m] * n)``). The fuser
@@ -184,8 +187,16 @@ class FeatRotationSymm(nn.Module):
         num_feat_vec: int = NUM_FEAT_VEC,
         fuse_views: bool = False,
         int8_backbone: Any = False,
+        bn_stat_subsample: int = 1,
+        remat: bool = False,
     ) -> None:
         super().__init__()
+        if fuse_views and bn_stat_subsample > 1:
+            raise ValueError(
+                "fuse_views=True stacks the batch as [view0; view1], so bn_stat_subsample's "
+                "contiguous-prefix slice would compute BN statistics from view-0 rows ONLY "
+                "(systematic, not the documented i.i.d. subsample). Use one or the other."
+            )
         if ignore_rotmat and encode_rotmat:
             raise ValueError("ignore_rotmat cannot be combined with encode_rotmat")
         if share_feature and (encode_rotmat or share_weights):
@@ -202,7 +213,10 @@ class FeatRotationSymm(nn.Module):
         self.num_feat_vec = num_feat_vec
         self.fuse_views = fuse_views
         self.int8_backbone = int8_backbone
-        backbone = BACKBONES[backbone_depth](int8=int8_backbone)
+        self.bn_stat_subsample = bn_stat_subsample
+        self.remat = remat
+        backbone = BACKBONES[backbone_depth](int8=int8_backbone, bn_stat_subsample=bn_stat_subsample,
+                                             remat=remat)
         fc_dim = backbone.feature_dim
         self._feat_extractor = nn.Sequential(backbone)
         self._lifter = Feat3dLifter(fc_dim, num_feat_vec)

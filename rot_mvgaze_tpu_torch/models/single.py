@@ -21,12 +21,14 @@ class SingleViewGazeNet(nn.Module):
     """ResNet backbone -> MLP ``[head_hidden, 2]`` -> (pitch, yaw).
 
     ``forward`` takes a raw NHWC image batch (returns pitchyaw) or the dict
-    contract (reads ``img_0``, adds ``img_feat_0`` and ``pred_gaze``)."""
+    contract (reads ``img_0``, adds ``img_feat_0`` and ``pred_gaze``).
+    ``remat`` recomputes the backbone's blocks in the backward."""
 
-    def __init__(self, backbone_depth: Any = 18, head_hidden: int = 512) -> None:
+    def __init__(self, backbone_depth: Any = 18, head_hidden: int = 512, remat: bool = False) -> None:
         super().__init__()
         self.backbone_depth = backbone_depth
-        backbone = BACKBONES[backbone_depth]()
+        self.remat = remat
+        backbone = BACKBONES[backbone_depth](remat=remat)
         self._feat_extractor = nn.Sequential(backbone)
         self._gaze_estimator = Mlp(backbone.feature_dim, [head_hidden, 2])
 

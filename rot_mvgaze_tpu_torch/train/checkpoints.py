@@ -24,8 +24,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-#: the pattern of checkpoint names (a temporary file never matches it)
+#: the pattern of the port's checkpoint names (a temporary file never matches it)
 CHECKPOINT_GLOB = "*.pth.tar"
+#: the names ``find_latest_checkpoint`` takes: the port's and the JAX
+#: package's ``.msgpack`` (whose writer's temporary ``<name>.tmp.<pid>``
+#: matches neither)
+RESUME_GLOBS = (CHECKPOINT_GLOB, "*.msgpack")
 
 
 def save_state(path: str, payload: Dict[str, Any]) -> str:
@@ -49,8 +53,10 @@ def save_state(path: str, payload: Dict[str, Any]) -> str:
 
 
 def find_latest_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """The most recently written checkpoint in ``ckpt_dir``, or None."""
-    candidates = glob.glob(os.path.join(ckpt_dir, CHECKPOINT_GLOB))
+    """The most recently written checkpoint in ``ckpt_dir`` (the port's
+    ``.pth.tar`` or the JAX package's ``.msgpack``, newest by mtime over
+    both), or None."""
+    candidates = [p for pattern in RESUME_GLOBS for p in glob.glob(os.path.join(ckpt_dir, pattern))]
     return max(candidates, key=os.path.getmtime) if candidates else None
 
 

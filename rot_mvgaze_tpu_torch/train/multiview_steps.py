@@ -21,7 +21,7 @@ from torch import nn
 
 from rot_mvgaze_tpu_torch.augment.ops import eval_preprocess, train_preprocess
 from rot_mvgaze_tpu_torch.geometry.gaze import rotation_matrix_2d
-from rot_mvgaze_tpu_torch.train.steps import build_train_step, check_step_options, eval_forward
+from rot_mvgaze_tpu_torch.train.steps import build_train_step, check_step_options, dp_shard, eval_forward
 
 
 def prepare_multiview_rotations(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -53,19 +53,23 @@ def make_multiview_train_step(
     freeze_bn: bool = False,
     with_images: bool = False,
     fold_key_by_step: bool = False,
+    group: Any = None,
 ) -> Callable[..., Dict[str, Any]]:
     """Returns ``train_step(batch, generator=None, *, step) -> stats``, the
     stereo :func:`~rot_mvgaze_tpu_torch.train.steps.make_train_step`'s
     contract and options (``compute_dtype``, ``augment``, ``ema_decay``,
-    ``freeze_bn``, ``with_images``, ``fold_key_by_step``) over V-view
-    batches (``imgs`` uint8, or float views already augmented when
+    ``freeze_bn``, ``with_images``, ``fold_key_by_step``, ``group``) over
+    V-view batches (``imgs`` uint8, or float views already augmented when
     ``augment=False``, ``head_poses`` and ``gt_gazes``)."""
     check_step_options(compute_dtype, 1, ema_decay, ema)
 
     def prepare(mb, generator):
         views = mb["imgs"]
         if augment:
-            views = _per_view(lambda x: train_preprocess(x, generator, image_size, compute_dtype), views)
+            shard = dp_shard(views.shape[0] * views.shape[1], group)
+            views = _per_view(
+                lambda x: train_preprocess(x, generator, image_size, compute_dtype, shard), views
+            )
         data = {"imgs": views, **prepare_multiview_rotations(mb)}
         return data, {"img_0": views[:, 0], "img_1": views[:, 1]}, data["gt_gazes"][:, 0]
 
@@ -73,6 +77,7 @@ def make_multiview_train_step(
         model, metrics, optimizer, prepare, "imgs", schedule=schedule,
         compute_dtype=compute_dtype, augment=augment, grad_accum=1, ema_decay=ema_decay,
         ema=ema, freeze_bn=freeze_bn, with_images=with_images, fold_key_by_step=fold_key_by_step,
+        group=group,
     )
 
 

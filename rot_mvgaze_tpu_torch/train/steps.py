@@ -39,12 +39,24 @@ def augment_views(
     batch: Dict[str, torch.Tensor],
     image_size: int,
     dtype: torch.dtype = torch.float32,
+    group: Any = None,
 ) -> Dict[str, torch.Tensor]:
-    """The train stack on both uint8 views, view 0's draws first."""
+    """The train stack on both uint8 views, view 0's draws first. Under a
+    process ``group`` the draws are the global batch's and this rank's rows
+    of them are applied (:func:`dp_shard`)."""
     return {
-        view: train_preprocess(batch[view], generator, image_size, dtype)
+        view: train_preprocess(batch[view], generator, image_size, dtype,
+                               dp_shard(batch[view].shape[0], group))
         for view in ("img_0", "img_1")
     }
+
+
+def dp_shard(rows: int, group: Any) -> Optional[tuple]:
+    """``(offset, total)`` of this rank's ``rows`` in the global batch of a
+    process ``group`` (every rank holding as many), or None without one."""
+    if group is None:
+        return None
+    return group.rank() * rows, group.size() * rows
 
 
 def fold_seed(base: int, count: int) -> int:
@@ -99,6 +111,7 @@ def make_train_step(
     freeze_bn: bool = False,
     with_images: bool = False,
     fold_key_by_step: bool = False,
+    group: Any = None,
 ) -> Callable[..., Dict[str, Any]]:
     """Returns ``train_step(batch, generator=None, *, step) -> stats``.
 
@@ -136,12 +149,24 @@ def make_train_step(
       function of the base seed and the update count, and a resumed run
       draws what the uninterrupted run drew; ``generator`` itself is not
       advanced.
+    - ``group``: data parallelism over a ``torch.distributed`` process
+      group. ``batch`` is this rank's share of the global batch (the ranks'
+      batches concatenated in rank order, each as large). The augmentation
+      draws are the global batch's (every rank's generator holds the same
+      seed) and this rank applies its rows of them; every BatchNorm takes
+      the global batch's statistics (the caller sets the model's group:
+      ``parallel.set_batchnorm_group``); after the backward the gradients
+      are averaged over the ranks by one all-reduce of their flattened
+      concatenation, and ``loss_gaze`` / ``error_gaze`` are the global
+      means. Under ``grad_accum`` micro-batch ``a`` is rows ``a::A`` of
+      each rank's batch, which together are rows ``a::A`` of the global
+      batch.
     """
     check_step_options(compute_dtype, grad_accum, ema_decay, ema)
 
     def prepare(mb, generator):
         if augment:
-            imgs = augment_views(generator, mb, image_size, compute_dtype)
+            imgs = augment_views(generator, mb, image_size, compute_dtype, group)
         else:
             imgs = {"img_0": mb["img_0"], "img_1": mb["img_1"]}
         data = {**imgs, **prepare_rotations(mb)}
@@ -151,7 +176,7 @@ def make_train_step(
         model, metrics, optimizer, prepare, "img_0", schedule=schedule,
         compute_dtype=compute_dtype, augment=augment, grad_accum=grad_accum,
         ema_decay=ema_decay, ema=ema, freeze_bn=freeze_bn, with_images=with_images,
-        fold_key_by_step=fold_key_by_step,
+        fold_key_by_step=fold_key_by_step, group=group,
     )
 
 
@@ -184,12 +209,13 @@ def build_train_step(
     freeze_bn: bool,
     with_images: bool,
     fold_key_by_step: bool,
+    group: Any = None,
 ) -> Callable[..., Dict[str, Any]]:
     """The step of :func:`make_train_step` over any model input:
     ``prepare(micro_batch, generator)`` returns the model's input dict, the
     two preview views ``{"img_0", "img_1"}`` (B, S, S, 3) and the view-0
     labels the error is taken against; ``batch[rows_key]`` counts the
-    batch's rows."""
+    batch's rows. ``group``: data parallelism (:func:`make_train_step`)."""
     first = next(iter(model.parameters()))
     folded: Dict[torch.device, torch.Generator] = {}
 
@@ -240,10 +266,12 @@ def build_train_step(
             # sum, then divide, as the JAX step does
             torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None], grad_accum)
             loss, error = loss / grad_accum, error / grad_accum
+        if group is not None:
+            loss, error = average_over_ranks(model, loss, error, rows, group)
         if schedule is not None:
             lr = schedule(step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr
         lr = optimizer.param_groups[0]["lr"]
         optimizer.step()
         update_ema(ema, model, ema_decay)
@@ -253,6 +281,36 @@ def build_train_step(
         return stats
 
     return train_step
+
+
+def average_over_ranks(model: nn.Module, loss: torch.Tensor, error: torch.Tensor, rows: int,
+                       group: Any) -> tuple:
+    """Data parallelism's end of the backward: every gradient averaged over
+    the ranks of ``group`` in place, by one all-reduce of their flattened
+    concatenation, and the global means of ``loss`` and ``error``. One flat
+    all-reduce rather than DDP: it runs after the whole backward, so it
+    composes with ``grad_accum`` (no ``no_sync``), with ``remat``'s
+    recompute and with parameters shared across iterations, and its sum
+    order is fixed. A parameter without a gradient (the backbone's unused
+    ``fc``) keeps none, as in one process, so that Adam leaves it alone; the
+    ranks run one graph, so they lay the buffer out alike. Asserts (on the
+    device) that every rank's batch has ``rows`` rows, which the global
+    statistics and augmentation take for granted."""
+    world = group.size()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [torch.stack([loss.float(), error.float(),
+                                     torch.tensor(float(rows), device=loss.device)])])
+    torch.distributed.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[offset:offset + n].view_as(g) / world)
+        offset += n
+    loss_sum, error_sum, total_rows = flat[offset:]
+    # checked on the device, without a wait for the host
+    torch._assert_async(total_rows == world * rows)
+    return loss_sum / world, error_sum / world
 
 
 def make_eval_step(model: nn.Module, image_size: int = 224) -> Callable[..., Dict[str, torch.Tensor]]:

@@ -185,6 +185,23 @@ class SummaryWriter:
         self._f.close()
 
 
+class NullSummaryWriter:
+    """:class:`SummaryWriter`'s interface writing nothing: the writer of
+    every rank but 0 under data parallelism (rank 0 alone writes logs)."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def add_image(self, tag: str, image: np.ndarray, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def _encode_png(img: np.ndarray) -> bytes:
     try:
         from PIL import Image

@@ -1,5 +1,5 @@
-"""Training runtime (port of the single-process part of
-``rot_mvgaze_tpu/train/trainer.py``, stereo and V-view).
+"""Training runtime (port of ``rot_mvgaze_tpu/train/trainer.py``, stereo and
+V-view, on one process or data-parallel over several).
 
 - :func:`make_optimizer`: ``torch.optim.Adam`` with coupled L2.
 - :class:`Trainer`: evaluation before the first epoch and after each one,
@@ -18,8 +18,21 @@ average and the epoch position) and from an ImageNet backbone
 With ``num_views > 2`` in the config it trains ``FeatRotationMultiView``
 through the V-view steps (``train/multiview_steps.py``) and scores view 0.
 
-Not ported yet: meshes, several hosts and their preemption agreement
-(ROADMAP A13) and profiler traces (A19).
+Under data parallelism (a process group from ``parallel.initialize``, one
+card per process) rank 0's weights, optimizer state, moving average, step
+and epoch position reach every rank at the start; each rank trains on its
+shard of the data with the global batch's BatchNorm statistics and averaged
+gradients (``make_train_step(group=)``); a preemption signal on any rank
+stops every rank at the same step; the evaluation's mean error is the
+global one; rank 0 alone writes checkpoints, logs and TensorBoard.
+
+``profile_steps`` N takes one ``torch.profiler`` trace of the N train steps
+after the first (which pays the start-up), with the device synchronised at
+both edges of the window, into ``profile_dir`` (default
+``<output_dir>/profile``; one ``host_{rank:02d}`` directory per process
+under data parallelism), as one Chrome trace file per process.
+
+Not ported yet: meshes and spatial partitioning (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rot_mvgaze_tpu_torch import parallel
 from rot_mvgaze_tpu_torch.compat.convert import (
     checkpoint_state_dict,
     is_jax_tree,
@@ -54,6 +68,7 @@ from rot_mvgaze_tpu_torch.evaluate import (
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
 from rot_mvgaze_tpu_torch.train.checkpoints import (
     CHECKPOINT_GLOB,
+    RESUME_GLOBS,
     find_latest_checkpoint,
     is_full_state,
     save_state,
@@ -61,7 +76,7 @@ from rot_mvgaze_tpu_torch.train.checkpoints import (
 from rot_mvgaze_tpu_torch.train.multiview_steps import make_multiview_eval_step, make_multiview_train_step
 from rot_mvgaze_tpu_torch.train.schedule import cyclic_triangular2
 from rot_mvgaze_tpu_torch.train.steps import init_ema, make_eval_step, make_train_step
-from rot_mvgaze_tpu_torch.train.tb import SummaryWriter, make_image_grid
+from rot_mvgaze_tpu_torch.train.tb import NullSummaryWriter, SummaryWriter, make_image_grid
 from rot_mvgaze_tpu_torch.utils.device import resolve_device
 from rot_mvgaze_tpu_torch.utils.profiling import StepTimer
 from rot_mvgaze_tpu_torch.utils.seed import set_seed
@@ -90,8 +105,9 @@ class Trainer:
     ``scheduler_step`` (``epoch``, the reference's, or
     ``iteration``), ``base_lr``, ``max_lr``, ``weight_decay``, ``bf16``
     (bf16 autocast in the train step), ``grad_accum``, ``ema_decay``,
-    ``freeze_bn``, ``keep_last_n`` and ``num_views``, each with the JAX
-    Trainer's default where it is absent. ``num_views > 2`` selects the
+    ``freeze_bn``, ``keep_last_n``, ``num_views``, ``profile_steps`` and
+    ``profile_dir``, each with the JAX Trainer's default where it is
+    absent. ``num_views > 2`` selects the
     V-view steps: batches of ``MultiViewGazeDataset``, no ``grad_accum``,
     images/s counting V images per sample, and the metric on view 0.
 
@@ -131,12 +147,17 @@ class Trainer:
         self._ema_decay = float(getattr(config, "ema_decay", 0.0) or 0.0)
         self.compute_dtype = torch.bfloat16 if getattr(config, "bf16", False) else torch.float32
         self.num_views = int(getattr(config, "num_views", 2) or 2)
+        self.rank, self.world = parallel.process_index(), parallel.process_count()
+        self.group = parallel.device_group()
+        self._is_primary = self.rank == 0
 
         # ---- weights ----
         ckpt_resume = getattr(config, "ckpt_resume", None)
         auto_dir = getattr(config, "auto_resume_dir", None)
         if ckpt_resume is None and auto_dir:
-            ckpt_resume = find_latest_checkpoint(auto_dir)
+            ckpt_resume = find_latest_checkpoint(auto_dir) if self._is_primary else None
+            if self.world > 1:  # rank 0's find: another rank may not see the directory
+                ckpt_resume = parallel.broadcast_object(ckpt_resume)
             if ckpt_resume:
                 print(f"auto-resume from latest checkpoint: {ckpt_resume}")
         if self.mode == "test" and ckpt_resume is None and init_state_dict is None:
@@ -144,7 +165,7 @@ class Trainer:
             raise FileNotFoundError(
                 "mode test needs a checkpoint, but none was found: ckpt_resume="
                 f"{getattr(config, 'ckpt_resume', None)!r}, auto_resume_dir={auto_dir!r} "
-                f"holds no {CHECKPOINT_GLOB}"
+                f"holds no {' or '.join(RESUME_GLOBS)}"
             )
         self._weights_only = bool(getattr(config, "weights_only", False))
         if self._weights_only and auto_dir:
@@ -159,12 +180,14 @@ class Trainer:
         warm_start = ckpt_resume is not None or init_state_dict is not None or bool(pretrained)
         if init_state_dict is not None:
             model.load_state_dict(init_state_dict, strict=True)
-        if pretrained:
+        # under data parallelism rank 0 alone reads files; the rest take its
+        # state by broadcast (below)
+        if pretrained and self._is_primary:
             pretrained = resolve_pretrained(pretrained, model.backbone_depth)
             load_pretrained_backbone(model, pretrained)
             print(f"backbone initialized from {pretrained}")
         ckpt, full = None, False
-        if ckpt_resume:
+        if ckpt_resume and self._is_primary:
             print(f"load from ckpt: {ckpt_resume}")
             ckpt = read_checkpoint(ckpt_resume)
             if is_jax_tree(ckpt):
@@ -217,18 +240,41 @@ class Trainer:
             elif stored:
                 self.ema = {n: stored[n].to(self.device) for n, _ in self.model.named_parameters()}
             print(f"restored full training state at step {self.step}")
+        if self.world > 1:
+            resume_meta = self._broadcast_state(resume_meta)
+            parallel.set_batchnorm_group(self.model, self.group)
 
         # ---- outputs ----
         self.output_dir = getattr(config, "output_dir", "./logs")
         self.ckpt_dir = osp.join(self.output_dir, "ckpt")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.writer = SummaryWriter(osp.join(self.output_dir, "tensorboard"))
-        with open(osp.join(self.output_dir, "config.yaml"), "w") as f:
-            # JSON is YAML; the snapshot needs no YAML package
-            json.dump({k: v for k, v in vars(config).items() if _jsonable(v)}, f, indent=1)
+        if self._is_primary:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            self.writer = SummaryWriter(osp.join(self.output_dir, "tensorboard"))
+            with open(osp.join(self.output_dir, "config.yaml"), "w") as f:
+                # JSON is YAML; the snapshot needs no YAML package
+                json.dump({k: v for k, v in vars(config).items() if _jsonable(v)}, f, indent=1)
+        else:
+            self.writer = NullSummaryWriter()
         self.epochs = int(getattr(config, "epochs", 15))
         self.save_epoch = int(getattr(config, "save_epoch", 10))
         self.print_freq = int(getattr(config, "print_freq", 50))
+
+        # ---- profiler window (profile_steps) ----
+        self.profile_steps = int(getattr(config, "profile_steps", 0) or 0)
+        profile_dir = getattr(config, "profile_dir", None)
+        if profile_dir is not None and not self.profile_steps:
+            raise ValueError("profile_dir needs profile_steps (how many steady-state train steps "
+                             "to trace)")
+        if self.profile_steps and profile_dir is None:
+            profile_dir = osp.join(self.output_dir, "profile")
+        if profile_dir is not None and self.world > 1:
+            # one directory per process: each traces its own card
+            profile_dir = osp.join(profile_dir, f"host_{self.rank:02d}")
+        self._profile_dir = profile_dir
+        self._profiler = None
+        self._profile_left = 0
+        self.profile_trace: Optional[str] = None
+        self._exec_steps = 0  # train steps this process has run (the window's trigger)
 
         # ---- where a resume starts: (epochs done, batches of the next) ----
         self._start_epoch = 0
@@ -281,15 +327,43 @@ class Trainer:
             if grad_accum > 1:
                 raise ValueError("grad_accum > 1 is not supported with num_views > 2")
             self._train_step = make_multiview_train_step(self.model, metrics, self.optimizer,
-                                                         **step_options)
+                                                         group=self.group, **step_options)
             self._eval_step = make_multiview_eval_step(self.model, self.image_size)
             self._eval_keys = MULTIVIEW_EVAL_KEYS
         else:
             self._train_step = make_train_step(self.model, metrics, self.optimizer,
-                                               grad_accum=grad_accum, **step_options)
+                                               grad_accum=grad_accum, group=self.group,
+                                               **step_options)
             self._eval_step = make_eval_step(self.model, self.image_size)
             self._eval_keys = EVAL_KEYS
         self._preempted = False
+
+    def _broadcast_state(self, resume_meta: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+        """Rank 0's weights, buffers, optimizer state, moving average, step
+        and epoch position on every rank (once, at the start): the ranks
+        average gradients, never parameters, so they must start alike,
+        also where only rank 0 could read the checkpoint. Returns the epoch
+        position."""
+        def cpu(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.detach().cpu()
+            if isinstance(tree, dict):
+                return {k: cpu(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(cpu(v) for v in tree)
+            return tree
+
+        state = None
+        if self._is_primary:
+            state = cpu({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                         "ema": self.ema, "step": self.step, "epoch_meta": resume_meta})
+        state = parallel.broadcast_object(state)
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        if state["ema"] is not None:
+            self.ema = {n: v.to(self.device) for n, v in state["ema"].items()}
+        return state["epoch_meta"]
 
     # ------------------------------------------------------------------
     def train(self) -> float:
@@ -334,13 +408,47 @@ class Trainer:
             if self._preempt_requested():  # during the last eval: keep the promise
                 self.save_checkpoint(add="preempt_final")
                 print("preempted during final eval: state saved")
+            if self.profile_steps and self.profile_trace is None:
+                print("WARNING: profile_steps was set but no trace was captured (the run took "
+                      "fewer than 2 train steps; the first step is left out of the window)")
             return error
         finally:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
 
     def _preempt_requested(self) -> bool:
+        """Whether to stop at this step boundary, the same answer on every
+        rank: a signal reaches one process, and a rank that stopped alone
+        would leave the others waiting in the next all-reduce (one flag
+        exchange per call under data parallelism). The agreed answer is
+        adopted, so that later checks see it on every rank."""
+        if self.world > 1 and parallel.any_process(self._preempted):
+            self._preempted = True
         return self._preempted
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._profile_left = self.profile_steps
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        path = osp.join(self._profile_dir, "trace.json")
+        self._profiler.export_chrome_trace(path)
+        captured = self.profile_steps - self._profile_left
+        self._profiler = None
+        self.profile_trace = path
+        print(f"profiler trace of {captured} train step(s) saved to {path} (chrome://tracing / "
+              f"Perfetto)")
 
     def train_one_epoch(self, epoch: int) -> None:
         """One epoch of train steps, from the batch a mid-epoch resume left
@@ -361,7 +469,15 @@ class Trainer:
         timer.start()
         preempted = False
         for batch in device_prefetch(iter(self.train_loader), self.device):
+            if (self.profile_steps and self.profile_trace is None and self._profiler is None
+                    and self._exec_steps == 1):
+                self._start_profile()
             stats = self._train_step(batch, self.generator, step=self.step)
+            self._exec_steps += 1
+            if self._profiler is not None:
+                self._profile_left -= 1
+                if self._profile_left == 0:
+                    self._stop_profile()
             self._epoch_step += 1
             n_samples += int((batch["imgs"] if "imgs" in batch else batch["img_0"]).shape[0])
             if self.step != 0 and self.step % self.print_freq == 0:
@@ -383,6 +499,9 @@ class Trainer:
                 break
         if not preempted:  # the epoch is done: a save records the next one
             self._epoch_cur, self._epoch_step = epoch + 1, 0
+        if self._profiler is not None:
+            # the epoch (or a preemption) ended inside the window: close it
+            self._stop_profile()
         self.writer.flush()
 
     def test(self, epoch: int) -> float:
@@ -409,12 +528,20 @@ class Trainer:
         # kept for test_breakdown, which then needs no second pass
         self.last_eval = {"pred": pred, "errors": errors, "idx_0": idx_0,
                           "rows": self._loader_eval_rows(idx_0)}
-        avg_error = float(np.mean(errors))
+        if self.world > 1:
+            # every rank scored its shard: the global mean from the ranks'
+            # (sum, count), the same on every rank
+            total = torch.tensor([float(np.sum(errors)), float(errors.shape[0])], dtype=torch.float64)
+            torch.distributed.all_reduce(total, group=parallel.host_group())
+            avg_error = float(total[0] / total[1])
+        else:
+            avg_error = float(np.mean(errors))
         msg = f"test on epoch {epoch + 1}, error: {avg_error}\n"
         print(msg, end="")
         self.writer.add_scalar("test/epoch_error_gaze", avg_error, epoch + 1)
-        with open(osp.join(self.output_dir, "test_results.txt"), "a") as f:
-            f.write(msg)
+        if self._is_primary:
+            with open(osp.join(self.output_dir, "test_results.txt"), "a") as f:
+                f.write(msg)
         self.writer.flush()
         return avg_error
 
@@ -438,22 +565,36 @@ class Trainer:
         first if there was none), appended to ``test_results.txt``."""
         if getattr(self, "last_eval", None) is None:
             self.test(-1)
+        ev = self.last_eval
+        errors, idx_0, rows = ev["errors"], ev["idx_0"], ev["rows"]
+        if self.world > 1:
+            # every rank's samples, in rank order; a rank without its rows
+            # or indices leaves them out for all
+            parts = parallel.all_gather_object((errors, idx_0, rows))
+            errors = np.concatenate([p[0] for p in parts])
+            idx_0 = None if any(p[1] is None for p in parts) else np.concatenate([p[1] for p in parts])
+            rows = None if any(p[2] is None for p in parts) else np.concatenate([p[2] for p in parts])
         detail = breakdown_from_errors(
-            self.last_eval["errors"], idx_0=self.last_eval["idx_0"],
-            dataset=getattr(self.test_loader, "dataset", None), rows=self.last_eval["rows"],
+            errors, idx_0=idx_0, dataset=getattr(self.test_loader, "dataset", None), rows=rows,
         )
         report = format_breakdown(detail)
+        if self.world > 1:
+            report = f"[aggregated over {self.world} processes]\n" + report
         print(report, end="")
-        with open(osp.join(self.output_dir, "test_results.txt"), "a") as f:
-            f.write(report)
+        if self._is_primary:
+            with open(osp.join(self.output_dir, "test_results.txt"), "a") as f:
+                f.write(report)
         return detail
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, add: Optional[str] = None) -> str:
         """Save the full state to ``ckpt/<add>.pth.tar`` (see
         :mod:`rot_mvgaze_tpu_torch.train.checkpoints`), keeping the newest
-        ``keep_last_n`` checkpoints when that is set."""
+        ``keep_last_n`` checkpoints when that is set. Under data parallelism
+        rank 0 alone writes (the state is the same on every rank)."""
         path = osp.join(self.ckpt_dir, (add if add is not None else "ckpt") + ".pth.tar")
+        if not self._is_primary:
+            return path
         payload = {
             "state_dict": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -475,7 +616,10 @@ class Trainer:
     def export_torch_checkpoint(self, path: str) -> str:
         """Save the bare reference state dict (the moving average's weights
         when there is one, the weights :meth:`test` scores) to ``path``: the
-        file ``GazePredictor`` and the reference load with ``strict=True``."""
+        file ``GazePredictor`` and the reference load with ``strict=True``
+        (rank 0 alone writes it)."""
+        if not self._is_primary:
+            return path
         sd = self.model.state_dict()
         if self.ema is not None:
             sd.update(self._ema_by_key())

@@ -351,6 +351,41 @@ def test_the_next_update_matches_the_jax_trainers(resumed):
         np.testing.assert_allclose(v.numpy(), ema[n].numpy(), atol=2e-5, err_msg=n)
 
 
+def test_auto_resume_over_jax_checkpoints(resumed, jax_run):
+    """--auto_resume_dir over the JAX run's checkpoint directory (its
+    .msgpack alone) resumes from that file, to the state --ckpt_resume
+    restores, and the next update on the same batch matches the JAX
+    Trainer's at the trajectory bars: loss rtol 1e-4, parameters within
+    2e-5, running statistics within 1e-4."""
+    root, corpus, path = jax_run["root"], jax_run["corpus"], jax_run["path"]
+    port = _port_trainer(corpus, root / "port_auto_resume", epochs=2,
+                         auto_resume_dir=os.path.dirname(path))
+    assert port._resume_path == path
+    assert port.step == 2 and (port._start_epoch, port._start_batch) == (1, 0)
+    for n, v in resumed["at_resume"]["port_state"].items():
+        assert torch.equal(port.model.state_dict()[n], v), n
+    rng = np.random.default_rng(1)  # the resumed fixture's batch
+    batch = {
+        "img_0": rng.normal(size=(4, SIZE, SIZE, 3)).astype(np.float32),
+        "img_1": rng.normal(size=(4, SIZE, SIZE, 3)).astype(np.float32),
+        **{k: rng.uniform(-0.5, 0.5, (4, 2)).astype(np.float32)
+           for k in ("head_pose_0", "head_pose_1", "gt_gaze", "gt_gaze_1")},
+    }
+    step = make_train_step(
+        port.model, IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5),
+        port.optimizer, image_size=SIZE, schedule=port.schedule, augment=False,
+        ema_decay=EMA, ema=port.ema)
+    stats = step({k: torch.from_numpy(v) for k, v in batch.items()}, step=port.step)
+    np.testing.assert_allclose(float(stats["loss_gaze"]), float(resumed["jax_stats"]["loss_gaze"]), rtol=1e-4)
+    new = resumed["jax_new"]
+    want = state_dict_from_jax({"params": new.params, "batch_stats": new.batch_stats}, **CFG)
+    for n, v in port.model.state_dict().items():
+        if "num_batches_tracked" in n or ".fc." in n:
+            continue
+        np.testing.assert_allclose(v.numpy(), want[n].numpy(), atol=1e-4 if "running" in n else 2e-5,
+                                   err_msg=n)
+
+
 def test_weights_only_loads_keep_a_fresh_adam(jax_run):
     """--weights_only from a full state: the EMA weights (preferred for
     weight-only loads), step 0, no optimizer state, the full epoch budget;

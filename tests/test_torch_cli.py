@@ -103,12 +103,13 @@ REFUSED = {
     "share_feature": (["--share_feature", "true", "--share_weights", "true"], "cannot be combined"),
     "ignore_rotmat": (["--ignore_rotmat", "true", "--encode_rotmat", "true"], "cannot be combined"),
     "fuse_views": (["--fuse_views", "true", "--freeze_bn", "true"], "silently inert"),
-    "bn_stat_subsample": (["--bn_stat_subsample", "2"], "A17"),
-    "remat": (["--remat", "true"], "A18"),
+    "bn_stat_subsample": (["--bn_stat_subsample", "2", "--num_views", "3"],
+                          "does not support: --bn_stat_subsample > 1"),
+    "bn_stat_subsample_freeze_bn": (["--bn_stat_subsample", "2", "--freeze_bn", "true"],
+                                    "silently inert: --bn_stat_subsample > 1"),
+    # not ported yet
     "spatial_partition": (["--spatial_partition", "2"], "A13"),
     "use_pallas_bn_residual": (["--use_pallas_bn", "residual"], "North star"),
-    "profile_steps": (["--profile_steps", "3"], "A19"),
-    "profile_steps_and_dir": (["--profile_steps", "3", "--profile_dir", "p"], "A19"),
     "xla_compiler_options": (["--xla_compiler_options", "{}"], "no counterpart"),
     # the JAX command line's own checks
     "num_views_1": (["--num_views", "1"], "must be >= 2"),
@@ -152,16 +153,29 @@ def test_the_card_is_the_default_device(tmp_path):
         cli.main(["--exp_name", "mpiinv_known", "--data_path", str(tmp_path / "absent.yaml")])
 
 
+def test_dp_false_under_a_world_of_processes_is_refused(tmp_path, monkeypatch):
+    """torchrun's WORLD_SIZE above 1 with --dp false: each process would
+    train a model of its own on its shard; refused before any data is read
+    and before the process group starts."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    argv = ["--exp_name", "mpiinv_known", "--data_path", str(tmp_path / "absent.yaml"),
+            "-out", str(tmp_path / "logs"), "--device", "cpu", "--dp", "false"]
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert "--dp false under 2 processes" in str(e.value.code)
+    assert not os.path.exists(tmp_path / "logs")
+
+
 def test_python_dash_m_runs_the_command_line(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-m", "rot_mvgaze_tpu_torch", "--exp_name", "mpiinv_known", "--remat", "true",
-         "--bogus", "1", "--device", "cpu", "--data_path", str(tmp_path / "absent.yaml")],
+        [sys.executable, "-m", "rot_mvgaze_tpu_torch", "--exp_name", "mpiinv_known", "--spatial_partition",
+         "2", "--bogus", "1", "--device", "cpu", "--data_path", str(tmp_path / "absent.yaml")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0
     assert "WARNING: ignoring unrecognized arguments: ['--bogus', '1']" in proc.stderr
-    assert "--remat (ROADMAP A18)" in proc.stderr
+    assert "--spatial_partition > 1 (ROADMAP A13)" in proc.stderr
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +211,54 @@ def test_experiment_pair_indices_are_jax_bit_for_bit(full_corpus, exp_name):
                 assert g.idx_to_kv == w.idx_to_kv, (exp_name, pairing, packed)
     with pytest.raises(NotImplementedError):
         cli.configure_dataset(exp_name.split("_")[0], full_corpus)
+
+
+# options the port refused until it had them: each configures the run as
+# the JAX command line's build_experiment does from the same command line
+NOW_RUN = {
+    "bn_stat_subsample": ["--bn_stat_subsample", "2"],
+    "remat": ["--remat", "true"],
+    "profile_steps": ["--profile_steps", "3"],
+    "profile_steps_and_dir": ["--profile_steps", "3", "--profile_dir", "p"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_RUN))
+def test_once_refused_options_configure_the_run_as_jax(full_corpus, tmp_path, case):
+    """The model's bn_stat_subsample and remat, the Trainer's profile_steps
+    and trace directory, from the port's and JAX's build_experiment."""
+    argv = ["--exp_name", "mpiinv_known", "--data_path", _data_path(tmp_path, full_corpus), "-out",
+            str(tmp_path / "logs"), "--image_size", "32", "--backbone_depth", "18", "--num_iter", "1",
+            "--native_loader", "false", "--num_workers", "1", *NOW_RUN[case]]
+    port = cli.build_experiment(cli.get_parser().parse_args([*argv, "--device", "cpu"]))
+    ref = jax_cli.build_experiment(jax_cli.get_parser().parse_args([*argv, "--dp", "false"]))
+    backbone = port.model._feat_extractor[0]
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+
+    assert {m.stat_subsample for m in backbone.modules() if isinstance(m, BatchNormAct)} == \
+        {ref.model.bn_stat_subsample}
+    assert port.model.bn_stat_subsample == ref.model.bn_stat_subsample
+    assert port.model.remat == backbone.remat == ref.model.remat
+    assert port.profile_steps == ref.profile_steps
+    assert port._profile_dir == ref._profile_dir
+
+
+def test_the_new_options_train_through_the_command_line(eval_setup, capsys):
+    """--bn_stat_subsample 2 --remat true --profile_steps 1 together: one
+    epoch of 3 updates from the .msgpack's weights, a trace of the second
+    update, a checkpoint and test_results.txt."""
+    root = eval_setup["root"]
+    out = str(root / "new_options")
+    assert cli.main(["--exp_name", "mpiinv_known", "--data_path", eval_setup["data_path"], "--device", "cpu",
+                     "--test_batch_size", "135", "--bf16", "false", *SMALL, "--mode", "train", "-out", out,
+                     "--epochs", "1", "--save_epoch", "1", "--batch_size", "90", "--ckpt_resume",
+                     eval_setup["ckpt"], "--weights_only", "true", "--bn_stat_subsample", "2",
+                     "--remat", "true", "--profile_steps", "1"]) == 0
+    assert "profiler trace of 1 train step(s) saved to" in capsys.readouterr().out
+    assert len(glob.glob(os.path.join(out, "*", "*", "profile", "trace.json"))) == 1
+    assert len(glob.glob(os.path.join(out, "*", "*", "ckpt", "*.pth.tar"))) == 1
+    (results,) = glob.glob(os.path.join(out, "*", "*", "test_results.txt"))
+    assert len(open(results).read().strip().splitlines()) == 2
 
 
 def test_grad_accum_rounds_the_batch(full_corpus, tmp_path, capsys):

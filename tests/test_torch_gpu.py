@@ -471,6 +471,101 @@ def test_bn_bwd_dx_matches_plain_and_repeats(cuda, case, dtype, gstats):
         assert dres is None
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BN_CASES, ids=["stem", "l1_tail", "l4_down", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bn_prefix_kernels_match_float64_plain(cuda, case, dtype):
+    """--bn_stat_subsample's path (the first half of the rows): bn_stats on
+    the prefix view, bn_bwd_reduce over every row divided by the prefix's
+    count, bn_bwd_dx with the statistics terms on the prefix rows only,
+    against the plain versions in float64 at test_bn_kernels_match_float64_
+    plain's bars; bn_bwd_dx also against its plain version in the same dtype
+    (bit for bit in bf16, 1e-6 in f32), the rows past the prefix exactly
+    k*g'."""
+    rows, c, relu, with_res = case
+    x, res, gy, scale, bias = _bn_inputs(rows, c, dtype, cuda, seed=11)
+    res = res if with_res else None
+    n = rows // 2
+    mean, var, rstd, a, b = batchnorm.bn_stats(x[:n], scale, bias, 1e-5)
+    y = batchnorm.bn_apply(x, a, b, res, relu)
+    dscale, dbias, k, mg, mgx = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu, count=n)
+    gmean, gvar = torch.randn(c, device=cuda), torch.randn(c, device=cuda)
+    args = (gy, y, x, mean, rstd, k, mg, mgx, gmean, gvar, relu, relu and with_res)
+    dx, dres = batchnorm.bn_bwd_dx(*args, stat_rows=n, count=n)
+    torch.cuda.synchronize()
+    want_dx, _ = batchnorm.bn_bwd_dx_reference(*args, stat_rows=n, count=n)
+    if dtype == torch.bfloat16:
+        assert torch.equal(dx, want_dx)
+    else:
+        torch.testing.assert_close(dx, want_dx, atol=1e-6, rtol=1e-6)
+    g_masked = torch.where(y > 0, gy.float(), 0.0) if relu else gy.float()
+    assert torch.equal(dx[n:], (k * g_masked[n:]).to(dtype))
+
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    x64, s64, b64 = d(x), d(scale), d(bias)
+    p_mean, p_var, p_rstd, p_a, p_b = batchnorm.bn_stats_reference(x64[:n], s64, b64, 1e-5)
+    p_ds, p_db, p_k, p_mg, p_mgx = batchnorm.bn_bwd_reduce_reference(
+        d(gy), d(y), x64, p_mean, p_rstd, s64, relu, count=n)
+    p_dx, _ = batchnorm.bn_bwd_dx_reference(d(gy), d(y), x64, p_mean, p_rstd, p_k, p_mg, p_mgx, d(gmean),
+                                            d(gvar), relu, False, stat_rows=n, count=n)
+    close = lambda a_, b_, tol: torch.testing.assert_close(a_.double(), b_, atol=tol[0], rtol=tol[1])  # noqa: E731
+    f32 = dtype == torch.float32
+    close(mean, p_mean, (1e-5, 1e-5))
+    close(var, p_var, (1e-5, 1e-5))
+    close(dscale, p_ds, (5e-4, 1e-3))
+    close(dbias, p_db, (5e-4, 1e-3))
+    close(mg, p_mg, (5e-4, 1e-3))
+    close(mgx, p_mgx, (5e-4, 1e-3))
+    close(dx, p_dx, (5e-4, 1e-3) if f32 else (1e-2, 1e-2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BN_CASES, ids=["stem", "l1_tail", "l4_down", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bn_dp_finish_matches_the_one_launch_path(cuda, case, dtype):
+    """The data-parallel path on one rank's rows: bn_stats' sums then
+    bn_stats_finish, and bn_bwd_reduce's sums then bn_bwd_finish, give the
+    one-launch path's results bit for bit (the same f64 sums, finished with
+    the same arithmetic). Over two halves of the rows whose sums are added
+    (two ranks' all-reduce), against the float64 plain versions over all
+    rows at the forward and gradient bars."""
+    rows, c, relu, with_res = case
+    x, res, gy, scale, bias = _bn_inputs(rows, c, dtype, cuda, seed=13)
+    res = res if with_res else None
+    one = batchnorm.bn_stats(x, scale, bias, 1e-5)
+    finish_before = batchnorm.bn_stats.finish_launches, batchnorm.bn_bwd_reduce.finish_launches
+    sums = batchnorm.bn_stats(x, scale, bias, 1e-5, sums=True)
+    two = batchnorm.bn_stats_finish(sums, scale, bias, 1e-5)
+    for name, got_t, want_t in zip(("mean", "var", "rstd", "a", "b"), two, one):
+        assert torch.equal(got_t, want_t), name
+    mean, _, rstd, a, b = one
+    y = batchnorm.bn_apply(x, a, b, res, relu)
+    want = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu)
+    ds, db, k, gsums = batchnorm.bn_bwd_reduce(gy, y, x, mean, rstd, scale, relu, sums=True)
+    mg, mgx = batchnorm.bn_bwd_finish(gsums, sums)
+    for name, got_t, want_t in zip(("dscale", "dbias", "k", "mg", "mgx"), (ds, db, k, mg, mgx), want):
+        assert torch.equal(got_t, want_t), name
+    assert (batchnorm.bn_stats.finish_launches, batchnorm.bn_bwd_reduce.finish_launches) == \
+        (finish_before[0] + 1, finish_before[1] + 1)
+
+    h = rows // 2
+    halves = batchnorm.bn_stats(x[:h], scale, bias, 1e-5, sums=True) + \
+        batchnorm.bn_stats(x[h:], scale, bias, 1e-5, sums=True)
+    mean2, var2, rstd2, _, _ = batchnorm.bn_stats_finish(halves, scale, bias, 1e-5)
+    g_halves = sum(batchnorm.bn_bwd_reduce(gy[i], y[i], x[i], mean2, rstd2, scale, relu, sums=True)[3]
+                   for i in (slice(0, h), slice(h, rows)))
+    mg2, mgx2 = batchnorm.bn_bwd_finish(g_halves, halves)
+    torch.cuda.synchronize()
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    p_mean, p_var, p_rstd, _, _ = batchnorm.bn_stats_reference(d(x), d(scale), d(bias), 1e-5)
+    _, _, _, p_mg, p_mgx = batchnorm.bn_bwd_reduce_reference(d(gy), d(y), d(x), p_mean, p_rstd, d(scale), relu)
+    close = lambda a_, b_, tol: torch.testing.assert_close(a_.double(), b_, atol=tol[0], rtol=tol[1])  # noqa: E731
+    close(mean2, p_mean, (1e-5, 1e-5))
+    close(var2, p_var, (1e-5, 1e-5))
+    close(mg2, p_mg, (5e-4, 1e-3))
+    close(mgx2, p_mgx, (5e-4, 1e-3))
+
+
 # ---------------------------------------------------------------------------
 # the training runtime on the card: prefetch and the Trainer's step options
 # ---------------------------------------------------------------------------

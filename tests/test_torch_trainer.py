@@ -21,6 +21,7 @@ from rot_mvgaze_tpu.losses import IterationLoss as JaxIterationLoss
 from rot_mvgaze_tpu.losses import StereoL1Loss as JaxStereoL1Loss
 from rot_mvgaze_tpu.models import FeatRotationSymm as JaxFeatRotationSymm
 from rot_mvgaze_tpu.train import Trainer as JaxTrainer
+from rot_mvgaze_tpu.train.checkpoints import save_state as jax_save_state
 from rot_mvgaze_tpu_torch.compat import load_checkpoint, read_checkpoint, state_dict_from_jax
 from rot_mvgaze_tpu_torch.data import BatchLoader, GazeDataset, write_synthetic_dataset
 from rot_mvgaze_tpu_torch.evaluate import evaluate_gaze
@@ -229,6 +230,11 @@ def test_keep_last_n(tmp_path, corpus):
 
 
 def test_auto_resume_picks_the_latest_and_test_mode_needs_a_checkpoint(tmp_path, corpus):
+    """The newest by mtime of the port's .pth.tar and the JAX package's
+    .msgpack, in a directory of either or of both; a temporary file of
+    either writer (``<name>.tmp.<pid>``) is never taken. The next update
+    from a JAX run's directory against JAX's own:
+    tests/test_torch_checkpoint_interop.py::test_auto_resume_over_jax_checkpoints."""
     trainer = _trainer(tmp_path, corpus)
     trainer.save_checkpoint(add="old")
     time.sleep(0.02)
@@ -240,6 +246,33 @@ def test_auto_resume_picks_the_latest_and_test_mode_needs_a_checkpoint(tmp_path,
         _trainer(tmp_path / "b", corpus, mode="test", auto_resume_dir=str(empty))
     with pytest.raises(ValueError, match="weights_only contradicts auto_resume_dir"):
         _trainer(tmp_path / "c", corpus, weights_only=True, auto_resume_dir=trainer.ckpt_dir)
+
+    # a directory of the JAX package's checkpoints alone
+    data = {"img_0": np.zeros((2, SIZE, SIZE, 3), np.float32), "img_1": np.zeros((2, SIZE, SIZE, 3), np.float32),
+            "rot_0": np.broadcast_to(np.eye(3, dtype=np.float32), (2, 3, 3)),
+            "rot_1": np.broadcast_to(np.eye(3, dtype=np.float32), (2, 3, 3))}
+    variables = jax.tree.map(np.asarray, JaxFeatRotationSymm(**CFG).init(jax.random.PRNGKey(3), data))
+    jax_dir = tmp_path / "jax_ckpt"
+    jax_save_state(str(jax_dir / "epoch_01.msgpack"), variables)
+    time.sleep(0.02)
+    jax_newest = jax_save_state(str(jax_dir / "epoch_02.msgpack"), variables)
+    time.sleep(0.02)
+    (jax_dir / "epoch_03.msgpack.tmp.123").write_bytes(b"a save cut short")
+    resumed = _trainer(tmp_path / "d", corpus, mode="test", auto_resume_dir=str(jax_dir))
+    assert resumed._resume_path == jax_newest
+    want = state_dict_from_jax(variables, **CFG)
+    for key, value in resumed.model.state_dict().items():
+        assert torch.equal(value, want[key]), key
+    # a mixed directory: the newer of either kind, whatever the suffix
+    time.sleep(0.02)
+    port_newest = trainer.save_checkpoint(add="newer")
+    os.link(port_newest, jax_dir / "newer.pth.tar")  # the same file, its mtime kept
+    (jax_dir / "newest.pth.tar.tmp.456").write_bytes(b"a save cut short")
+    assert _trainer(tmp_path / "e", corpus, auto_resume_dir=str(jax_dir))._resume_path == \
+        str(jax_dir / "newer.pth.tar")
+    time.sleep(0.02)
+    jax_last = jax_save_state(str(jax_dir / "epoch_04.msgpack"), {"step": np.int32(4)})
+    assert find_latest_checkpoint(str(jax_dir)) == jax_last
 
 
 def test_weights_only_warm_start_keeps_a_fresh_optimizer(tmp_path, corpus):
