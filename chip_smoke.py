@@ -193,12 +193,43 @@ script exits non-zero and prints no result line:
    fuser, 106 of each finish kernel. A world of one over nccl: the group
    path bit for bit the no-group path, bf16 and f32. NCCL across cards is
    not measured (one card).
-13. the kernels line, the card line, and as the last line
+13. mesh serving and spatial partitioning, R50 x 3, full width, 224x224,
+   on a logical mesh of cuda:0 (each device of a mesh is that card), counts
+   set to 0 just before each micro-batch and update and read just after.
+   (a) GazePredictor(mesh=) at (data 2), (data 1, spatial 2), (data 2,
+   spatial 2) and (data 1, spatial 4), bf16 and f32, 100 pairs against the
+   single-card predictor at the replicas' rows per call: f32 at phase 4's
+   bar (atol 2e-4 / rtol 1e-3); bf16 mean delta <= 0.1 deg where the
+   replicas run the card's shapes (data parallel), and on strips (other
+   conv heights, so other cuDNN kernels) within 0.1 deg or 1.5x the card's
+   own bf16 spread between micro-batches 32 and 64, whichever is larger;
+   each beside the single-card predictor at micro-batch 64: micro-batch 63 rounded to a multiple of the data
+   axis, 6 fuser launches (wgmma in bf16) per data replica per
+   micro-batch, no train-mode BN or conv kernel; images/s and p50 of the
+   bf16 predictor beside the single-card one; serve.py's --dp
+   --spatial_partition 2 (build_predictor over a 4-device list) over HTTP on
+   127.0.0.1, replies equal direct predicts. (b) One f32 update of 64
+   pairs under (data 1, spatial 2) and (data 1, spatial 4) against the
+   unsharded one from one state and seed (loss rtol 1e-4, gradients at
+   phase 7b's f32 bars against a float64 step, BN buffers within 1e-4);
+   one bf16 update under each against the unsharded bf16 update (phase
+   7b's bf16 bars; where the train forward's pred_gaze moves past 0.1 deg,
+   its pred_gaze no farther from the f32 unsharded update's than 1.5x the
+   unsharded bf16 update's; the gradients are held in f32); every update
+   with the launches predicted in PERF.md (PER_SPATIAL_UPDATE, finish
+   kernels included); each bf16 update's host ms beside the unsharded one;
+   the BN kernels against float64 at every distinct strip shape of the (1,
+   2) update. (c) --spatial_partition 2 with one visible card is refused in
+   JAX's words. Where the process sees more than one card, (a) and (b)
+   again over the real cards, and two updates through the command line's
+   build_experiment over two of them, with each card's peak memory. The
+   phase's seconds.
+14. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-13, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-14, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -2911,6 +2942,417 @@ def run_options_phase(fusion, batchnorm, bn_shapes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: mesh serving and spatial partitioning
+# ---------------------------------------------------------------------------
+
+# (data, spatial) logical meshes of phase 13a, on cuda:0
+MESH_LAYOUTS = ((2, 1), (1, 2), (2, 2), (1, 4))
+MESH_MICRO_BATCH = 63  # rounds up to 64 on two data replicas, stays 63 on one
+# launches per bf16 update of 64 pairs on a spatial mesh at 224x224 (the
+# counts PERF.md §6 predicted): every BN call of both views on its strips (2
+# launches of each kernel and one of each finish kernel over 2 strips); over
+# 4 strips layer4's 7 rows would split 2, 2, 2, 1, so its 10 BN calls a view
+# run on the gathered map (the one-launch path) and the other 43 on 4 strips
+PER_SPATIAL_UPDATE = {
+    2: {**PER_STEP, **{k: 2 * 106 for k in BN_KERNELS}, "bn_stats_finish": 106, "bn_bwd_finish": 106},
+    4: {**PER_STEP, **{k: 4 * 86 + 20 for k in BN_KERNELS}, "bn_stats_finish": 86, "bn_bwd_finish": 86},
+}
+
+
+def reset_mesh_counts(fusion, batchnorm) -> None:
+    reset_counts(fusion, batchnorm)
+    batchnorm.bn_stats.finish_launches = batchnorm.bn_bwd_reduce.finish_launches = 0
+
+
+def mesh_counts(fusion, batchnorm) -> dict:
+    return {**launch_counts(fusion, batchnorm), "bn_stats_finish": batchnorm.bn_stats.finish_launches,
+            "bn_bwd_finish": batchnorm.bn_bwd_reduce.finish_launches}
+
+
+def serve_on_mesh(fusion, batchnorm, pred, req, data: int) -> tuple:
+    """One counted predict of ``req`` through a mesh predictor: (pitchyaw,
+    counts); the fuser must launch 6 times per data replica and micro-batch,
+    of the variant its dtype takes, and no train-mode BN or conv kernel."""
+    reset_mesh_counts(fusion, batchnorm)
+    mb_before = pred.micro_batches_run
+    out = pred.predict(*req)
+    counts = mesh_counts(fusion, batchnorm)
+    micro_batches = pred.micro_batches_run - mb_before
+    variant = "wgmma" if pred.model._lifter._lifter.blocks[0][0].weight.dtype == torch.bfloat16 else "generic"
+    if counts["fusion"] != 6 * data * micro_batches or \
+            fusion.rotate_concat_matmul_relu.launches_by_variant[variant] != counts["fusion"]:
+        raise RuntimeError(f"mesh serving launched {counts} ({fusion.rotate_concat_matmul_relu.launches_by_variant})"
+                           f" over {micro_batches} micro-batches x {data} replicas, expected 6 {variant} each")
+    if any(counts[k] for k in BN_KERNELS) or counts["conv3x3_bn_stats"] or counts["bn_stats_finish"]:
+        raise RuntimeError(f"mesh serving launched train-mode BN or conv kernels: {counts}")
+    if out.shape != (req[0].shape[0], 2) or not np.all(np.isfinite(out)):
+        raise RuntimeError(f"mesh serving returned {out.shape}, finite: {np.isfinite(out).all()}")
+    return out, counts
+
+
+def run_mesh_serving(fusion, batchnorm, ckpt: str, devices: list) -> dict:
+    """Phase 13a on ``devices`` (a logical mesh on cuda:0: each layout's
+    devices repeat it): each (data, spatial) layout of MESH_LAYOUTS serves
+    100 pairs in bf16 and f32 beside the single-card predictor (phase 4's
+    bars: bf16 mean delta <= 0.1 deg, f32 atol 2e-4 / rtol 1e-3), the
+    micro-batch rounding, the launches, images/s and p50 of the bf16
+    predictor; then serve.py's --dp --spatial_partition 2 over HTTP."""
+    from rot_mvgaze_tpu_torch import serve
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.parallel import make_mesh
+    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor
+
+    kw = dict(backbone_depth=50, num_iter=3, image_size=224)
+    req = requests([100], seed=81)[0]
+    timed = requests([64], seed=82)[0]
+    out, launches, single = {}, 0, {}
+
+    def one_card(dtype, micro_batch):
+        """The single-card predictor's pitchyaw of ``req`` at ``micro_batch``
+        (a mesh replica's rows per call: the same shapes, so the same cuDNN
+        and cuBLAS kernels, whose bf16 roundings the random-init R50
+        amplifies past 0.1 deg between batch sizes)."""
+        if (dtype, micro_batch) not in single:
+            pred = GazePredictor(ckpt, micro_batch=micro_batch, dtype=dtype, device=devices[0], **kw)
+            single[dtype, micro_batch] = pred.predict(*req)
+            if (dtype, micro_batch) == (torch.bfloat16, 64):
+                out["single_card"] = time_serving(pred, timed, n_iter=5)
+            del pred
+        return single[dtype, micro_batch]
+
+    # the card's own bf16 spread between two micro-batch sizes: the random-init
+    # R50 turns the per-shape kernels' roundings into this much (phase 12d
+    # reads 0.4 deg in training between batches of 32 and 64 images)
+    spread = float(angular_error_numpy(one_card(torch.bfloat16, 64), one_card(torch.bfloat16, 32)).mean())
+    bf16_bar = max(0.1, 1.5 * spread)
+    out["one_card_bf16_spread_deg_micro_batch_32_vs_64"] = spread
+    log(f"one card, bf16, micro-batch 32 against 64: mean delta {spread:.4e} deg; mesh bf16 bar {bf16_bar:.4f} deg")
+    for data, sp in MESH_LAYOUTS:
+        name = f"data{data}_spatial{sp}"
+        mesh = make_mesh(devices[:data * sp] if len(devices) >= data * sp else [devices[0]] * (data * sp),
+                         spatial=sp)
+        rec = {"devices": [[str(d) for d in row] for row in mesh.grid]}
+        for dtype in (torch.bfloat16, torch.float32):
+            pred = GazePredictor(ckpt, micro_batch=MESH_MICRO_BATCH, dtype=dtype, mesh=mesh, **kw)
+            want_mb = -(-MESH_MICRO_BATCH // data) * data
+            if pred.micro_batch != want_mb:
+                raise RuntimeError(f"{name}: micro-batch {pred.micro_batch}, expected {want_mb}")
+            got, counts = serve_on_mesh(fusion, batchnorm, pred, req, data)
+            launches += counts["fusion"]
+            want = one_card(dtype, pred.micro_batch // data)
+            if dtype == torch.bfloat16:
+                delta = float(angular_error_numpy(got, want).mean())
+                if not delta <= (0.1 if sp == 1 else bf16_bar):
+                    raise RuntimeError(f"{name} bf16 serving deviates from one card by {delta} deg")
+                rec.update(micro_batch=pred.micro_batch, bf16_delta_deg=delta, fuser_launches_bf16=counts["fusion"],
+                           bf16_delta_deg_vs_micro_batch_64=float(
+                               angular_error_numpy(got, one_card(dtype, 64)).mean()),
+                           **{f"bf16_{k}": v for k, v in time_serving(pred, timed, n_iter=5).items()})
+            else:
+                err = float(np.abs(got - want).max())
+                np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+                rec["f32_max_abs_diff"] = err
+            del pred
+        log(f"mesh serving {name}: micro-batch {rec['micro_batch']}, bf16 delta {rec['bf16_delta_deg']:.3e} deg "
+            f"({rec['bf16_delta_deg_vs_micro_batch_64']:.3e} against one card at micro-batch 64), "
+            f"f32 max |diff| {rec['f32_max_abs_diff']:.3e}, {rec['bf16_serve_imgs_per_s']:.1f} images/s, p50 "
+            f"{rec['bf16_serve_p50_ms']:.2f} ms (one card: {out['single_card']['serve_imgs_per_s']:.1f}, "
+            f"{out['single_card']['serve_p50_ms']:.2f} ms)")
+        out[name] = rec
+        torch.cuda.empty_cache()
+
+    # serve.py --dp --spatial_partition 2 over HTTP on 127.0.0.1
+    n_dev = 4 if len(devices) < 4 else len(devices) - len(devices) % 2
+    listed = ",".join(str(d) for d in (devices[:n_dev] if len(devices) >= 4 else [devices[0]] * 4))
+    args = serve.get_parser().parse_args(["--ckpt", ckpt, "--dp", "--spatial_partition", "2", "--device", listed,
+                                          "--host", "127.0.0.1", "--port", "0"])
+    if serve.refused(args) or not serve.serves_on_a_mesh(args):
+        raise RuntimeError(f"serve.py refused {listed}: {serve.refused(args)}")
+    pred = serve.build_predictor(args)
+    pred.warmup()
+    batching = BatchingPredictor(pred, max_delay_ms=5.0)
+    stats = {"requests": 0, "samples": 0, "time": 0.0}
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(batching, stats))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    reqs = requests([1, 17, 64, 100], seed=83)
+    try:
+        reset_mesh_counts(fusion, batchnorm)
+        mb_before = pred.micro_batches_run
+        replies = [post_predict(httpd.server_address[1], pred.request_fields, r) for r in reqs]
+        http_launches = fusion.rotate_concat_matmul_relu.launches
+        micro_batches = pred.micro_batches_run - mb_before
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        batching.close()
+    dp = len(pred.mesh.grid)
+    if http_launches != 6 * dp * micro_batches:
+        raise RuntimeError(f"serve.py over the mesh: {http_launches} fuser launches, expected 6 x {dp} x "
+                           f"{micro_batches}")
+    for r, reply in zip(reqs, replies):
+        np.testing.assert_allclose(reply, pred.predict(*r), atol=1e-3, rtol=0)
+    launches += http_launches
+    out["serve_py_http"] = {"devices": listed, "micro_batch": pred.micro_batch, "requests": stats["requests"],
+                            "micro_batches": micro_batches, "fuser_launches": http_launches}
+    log(f"serve.py --dp --spatial_partition 2 --device {listed}: {stats['requests']} HTTP requests, "
+        f"{micro_batches} micro-batches, {http_launches} fuser launches, replies equal direct predicts")
+    del pred
+    return {"numbers": out, "launches": launches}
+
+
+def record_strip_shapes(model, shapes: list) -> list:
+    """Forward pre-hooks appending ((rows, C), relu, residual) of every
+    block of each BatchNormAct call on height strips; returns the hooks."""
+    from rot_mvgaze_tpu_torch.models.norm import BatchNormAct
+    from rot_mvgaze_tpu_torch.parallel import Sharded
+
+    def hook(mod, args):
+        x = args[0]
+        if isinstance(x, Sharded):
+            res = len(args) > 1 and args[1] is not None
+            shapes.extend(((t.shape[0] * t.shape[2] * t.shape[3], t.shape[1]), mod.relu, res) for t in x.blocks())
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, BatchNormAct)]
+
+
+def spatial_update(fusion, batchnorm, state, batch, dtype, devices, sp, seed=91, shapes=None) -> dict:
+    """One update of 64 pairs from ``state`` on ``sp`` of ``devices`` (a
+    (data 1, spatial sp) mesh; None: unsharded on the first), counts set to
+    0 just before and read just after; its loss, pred_gaze, gradients, BN
+    buffers and counts."""
+    from rot_mvgaze_tpu_torch.parallel import make_mesh, with_spatial_floor
+    from rot_mvgaze_tpu_torch.train import cyclic_triangular2, make_optimizer, make_train_step
+
+    mesh = None if sp is None else make_mesh((devices * sp)[:sp] if len(devices) < sp else devices[:sp],
+                                             spatial=sp)
+    model = family_model({})
+    model.load_state_dict(state, strict=True)
+    model = with_spatial_floor(model.to(device=devices[0], memory_format=torch.channels_last), mesh)
+    step = make_train_step(model, family_metrics({}), make_optimizer(model.parameters()), image_size=224,
+                           schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
+                           compute_dtype=dtype, mesh=mesh)
+    hooks = [] if shapes is None else record_strip_shapes(model, shapes)
+    reset_mesh_counts(fusion, batchnorm)
+    stats = step(batch, torch.Generator(device=devices[0]).manual_seed(seed), step=0)
+    torch.cuda.synchronize()
+    counts = mesh_counts(fusion, batchnorm)
+    for h in hooks:
+        h.remove()
+    return {"loss": float(stats["loss_gaze"]), "pred": stats["pred_gaze"].float().cpu().numpy(),
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None},
+            "buffers": model_buffers(model), "counts": counts, "model": model, "step": step}
+
+
+def grad_gap(grads: dict, anchor: dict) -> float:
+    """Norm-relative distance of a whole gradient from ``anchor``'s, in
+    float64, over every leaf."""
+    num = sum(float((grads[n].double() - a.double()).square().sum()) for n, a in anchor.items())
+    den = sum(float(a.double().square().sum()) for a in anchor.values())
+    return (num / den) ** 0.5
+
+
+def time_updates(run, batch, n=3) -> float:
+    """Host ms per update over ``n`` updates of a warm (model, step) pair,
+    each ending in a synchronize."""
+    step = run["step"]
+    gen = torch.Generator(device=batch["img_0"].device).manual_seed(92)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        float(step(batch, gen, step=1 + i)["loss_gaze"])
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def run_spatial_training(fusion, batchnorm, devices: list) -> dict:
+    """Phase 13b from one saved state and one generator seed: one f32
+    update of 64 pairs under (data 1, spatial 2) and under (data 1, spatial
+    4) against the unsharded f32 update (loss rtol 1e-4, gradients at phase
+    7b's f32 bars against a float64 step, BN buffers within 1e-4); one bf16
+    update under each against the unsharded bf16 update (phase 7b's bars:
+    loss within 1%, pred_gaze within 0.1 deg; where pred_gaze moves past
+    0.1 deg, it must be no farther from the f32 unsharded update's than
+    1.5x the unsharded bf16 update's, the rule of hold_f32_grads; the whole
+    gradient's distance from the f32 update's is recorded beside the
+    unsharded bf16 update's), with the predicted launches
+    (PER_SPATIAL_UPDATE); the step's host ms beside the unsharded step's;
+    the BN kernels against float64 at every distinct strip shape of the
+    (1, 2) update."""
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+
+    torch.manual_seed(7)
+    state = FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict()
+    batch = {k: v.to(devices[0]) for k, v in training_batch(seed=93).items()}
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def discard(run):
+        for k in ("model", "step", "buffers"):
+            run.pop(k, None)
+        torch.cuda.empty_cache()
+
+    # f32 under (1, 2) and (1, 4) against the unsharded f32 update and a float64 step
+    a = spatial_update(fusion, batchnorm, state, batch, torch.float32, devices, None)
+    add(a["counts"])
+    l64, g64 = reference_step_f64(state, batch, seed=91)
+    for sp in (2, 4):
+        b = spatial_update(fusion, batchnorm, state, batch, torch.float32, devices, sp)
+        add(b["counts"])
+        if b["counts"] != PER_SPATIAL_UPDATE[sp]:
+            raise RuntimeError(f"spatial {sp} f32 update launched {b['counts']}, predicted {PER_SPATIAL_UPDATE[sp]}")
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
+        worst, ill = hold_f32_grads(f"spatial{sp}_f32", b["grads"], a["grads"], g64)
+        worst_buf = 0.0
+        for n, v in a["buffers"].items():
+            if n.endswith("num_batches_tracked"):
+                if int(v) != int(b["buffers"][n]):
+                    raise RuntimeError(f"{n}: num_batches_tracked {int(b['buffers'][n])} on strips, {int(v)} without")
+                continue
+            torch.testing.assert_close(b["buffers"][n], v, atol=1e-4, rtol=0,
+                                       msg=lambda m: f"spatial {sp} buffer {n}: {m}")
+            worst_buf = max(worst_buf, (b["buffers"][n] - v).abs().max().item())
+        out[f"spatial{sp}_f32"] = {"loss": b["loss"], "loss_unsharded": a["loss"], "loss_f64": l64,
+                                   "max_grad_diff": worst, "ill_conditioned": ill, "max_buffer_diff": worst_buf}
+        log(f"spatial {sp} f32 update: loss {b['loss']:.8f} vs {a['loss']:.8f} (f64 {l64:.8f}); gradients max "
+            f"|diff| {worst:.3e}, beyond f32's reach: {ill}; BN buffers max |diff| {worst_buf:.3e}")
+        del b
+        torch.cuda.empty_cache()
+    del g64
+    discard(a)
+
+    base = spatial_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, None)
+    add(base["counts"])
+    if base["counts"] != {**PER_STEP, "bn_stats_finish": 0, "bn_bwd_finish": 0}:
+        raise RuntimeError(f"unsharded update launched {base['counts']}")
+    base_ms = time_updates(base, batch)
+    discard(base)
+    base_far = float(angular_error_numpy(base["pred"], a["pred"]).mean())
+    base_gap = grad_gap(base["grads"], a["grads"])
+    strip_shapes = []
+    for sp in (2, 4):
+        run = spatial_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, sp,
+                             shapes=strip_shapes if sp == 2 else None)
+        add(run["counts"])
+        if run["counts"] != PER_SPATIAL_UPDATE[sp] or fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"] != 6:
+            raise RuntimeError(f"spatial {sp} update launched {run['counts']}, predicted {PER_SPATIAL_UPDATE[sp]}")
+        rel = abs(run["loss"] - base["loss"]) / abs(base["loss"])
+        delta = float(angular_error_numpy(run["pred"], base["pred"]).mean())
+        far = float(angular_error_numpy(run["pred"], a["pred"]).mean())
+        gap = grad_gap(run["grads"], a["grads"])
+        # phase 7b's bars; where the train forward's bf16 pred_gaze moves past
+        # 0.1 deg (other conv heights, other cuDNN kernels, amplified by the
+        # random-init R50), the strips' bf16 pred_gaze no farther from the f32
+        # update's than 1.5x the unsharded bf16's. The gradients are held in
+        # f32 above: at random init the whole bf16 gradient lies about its own
+        # norm away from the f32 one, too far for a bar to see a fault
+        if not (rel <= 1e-2 and (delta <= 0.1 or far <= 1.5 * base_far)):
+            raise RuntimeError(f"spatial {sp} bf16 update deviates: loss rel {rel}, pred_gaze {delta} deg; from the "
+                               f"f32 update {far} deg (unsharded bf16 {base_far})")
+        ms = time_updates(run, batch)
+        out[f"spatial{sp}_bf16"] = {"loss_rel": rel, "delta_deg": delta, "f32_delta_deg": far,
+                                    "unsharded_f32_delta_deg": base_far, "grad_gap_f32": gap,
+                                    "unsharded_grad_gap_f32": base_gap, "launches": run["counts"],
+                                    "update_ms": ms, "unsharded_update_ms": base_ms}
+        log(f"spatial {sp} bf16 update: loss {run['loss']:.6f} vs {base['loss']:.6f} (rel {rel:.2e}), pred_gaze "
+            f"delta {delta:.3e} deg; from the f32 update: pred_gaze {far:.3e} deg (unsharded bf16 {base_far:.3e}), "
+            f"gradient {gap:.3e} (unsharded bf16 {base_gap:.3e}); launches {run['counts']}; "
+            f"{ms:.1f} ms per update vs {base_ms:.1f} unsharded")
+        del run
+        torch.cuda.empty_cache()
+    del a, base
+
+    # the BN kernels against float64 at every distinct strip shape of the (1, 2) update
+    cases = sorted({(rows, c, relu, res) for (rows, c), relu, res in strip_shapes})
+    out["strip_bn_shapes"] = len(cases)
+    out["strip_bn_max_abs_err_bf16"] = check_bn_kernels(
+        batchnorm, [(f"(1, 2) strip", rows, c, relu, res) for rows, c, relu, res in cases])
+    return {"numbers": out, "launches": launches}
+
+
+def run_spatial_cli(fusion, batchnorm, devices: list) -> dict:
+    """Phase 13c: --spatial_partition 2 on a machine with one card is
+    refused in JAX's words before any data is read. Where this process sees
+    two cards or more, the command line's build_experiment with
+    --spatial_partition 2 over two of them (phase 9's packs, batches of 50)
+    and two updates through its Trainer's loader and step: finite losses,
+    the predicted launches, each card's peak memory."""
+    from rot_mvgaze_tpu_torch.cli import main as cli
+    from rot_mvgaze_tpu_torch.data import device_prefetch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--exp_name", "xgaze2mpiinv_known", "--data_path", os.path.join(tmp, "absent.yaml"),
+                "-out", os.path.join(tmp, "logs"), "--spatial_partition", "2"]
+        if torch.cuda.device_count() < 2:
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                if "needs the mesh path" not in str(e.code):
+                    raise RuntimeError(f"--spatial_partition 2 on one card exited with {e.code!r}")
+                out["refused"] = str(e.code)
+            else:
+                raise RuntimeError("--spatial_partition 2 on one card was not refused")
+            log(f"--spatial_partition 2 with one card: refused ({out['refused']})")
+            return {"numbers": out, "launches": {}}
+        paths = write_cli_corpus(tmp)
+        config = cli.get_parser().parse_args([
+            "--exp_name", "xgaze2mpiinv_known", "--data_path", paths["data_path"], "-out", os.path.join(tmp, "logs"),
+            "--spatial_partition", "2", "--device", f"{devices[0]},{devices[1]}", "--epochs", "1"])
+        trainer = cli.build_experiment(config)
+        for d in devices[:2]:
+            torch.cuda.reset_peak_memory_stats(d)
+        losses, counts = [], []
+        for i, batch in zip(range(2), device_prefetch(iter(trainer.train_loader), trainer.device)):
+            reset_mesh_counts(fusion, batchnorm)
+            losses.append(float(trainer._train_step(batch, trainer.generator, step=i)["loss_gaze"]))
+            counts.append(mesh_counts(fusion, batchnorm))
+        want = PER_SPATIAL_UPDATE[2]  # a batch of 50 pairs splits as 64 does at 224x224
+        if not all(np.isfinite(losses)) or any(c != want for c in counts):
+            raise RuntimeError(f"--spatial_partition 2 updates: losses {losses}, launches {counts}")
+        out.update(losses=losses, launches=counts[0],
+                   per_card_peak_mib={str(d): torch.cuda.max_memory_allocated(d) / 2**20 for d in devices[:2]})
+        log(f"--spatial_partition 2 over {devices[:2]}: losses {losses}, launches {counts[0]}, peak memory "
+            f"{out['per_card_peak_mib']}")
+    return {"numbers": out, "launches": {k: 2 * v for k, v in counts[0].items()}}
+
+
+def run_mesh_phase(fusion, batchnorm) -> dict:
+    """Phase 13: mesh serving (a), spatial training (b) and the command
+    line (c) at R50 x 3, full width, 224x224, on a logical mesh of cuda:0,
+    and where this process sees more cards, again over the real cards."""
+    t_phase = time.perf_counter()
+    numbers, launches, serving_launches = {}, {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "r50_seed0.pth.tar")
+        make_checkpoint(ckpt)
+        targets = [("logical", [torch.device("cuda", 0)])]
+        if torch.cuda.device_count() > 1:
+            targets.append(("cards", [torch.device("cuda", i) for i in range(torch.cuda.device_count())]))
+        for name, devices in targets:
+            t0 = time.perf_counter()
+            served = run_mesh_serving(fusion, batchnorm, ckpt, devices)
+            serving_launches += served["launches"]
+            trained = run_spatial_training(fusion, batchnorm, devices)
+            for k, v in trained["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            numbers[name] = {"serving": served["numbers"], "training": trained["numbers"],
+                             "seconds": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+    cli = run_spatial_cli(fusion, batchnorm, [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    numbers["cli"] = cli["numbers"]
+    for k, v in cli["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    numbers["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {numbers['seconds']:.1f} s")
+    return {"numbers": numbers, "launches": launches, "serving_launches": serving_launches}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -3098,6 +3540,8 @@ def main(argv=None) -> int:
     keep.cleanup()
     torch.cuda.empty_cache()
     options = run_options_phase(fusion, batchnorm, trained["bn_shapes"])
+    torch.cuda.empty_cache()
+    mesh = run_mesh_phase(fusion, batchnorm)
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -3107,6 +3551,7 @@ def main(argv=None) -> int:
     print(json.dumps({"model_family": family["numbers"], **tag}), flush=True)
     print(json.dumps({"serving_surface": surface["numbers"], **tag}), flush=True)
     print(json.dumps({"options": options["numbers"], **tag}), flush=True)
+    print(json.dumps({"mesh_spatial": mesh["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -3152,6 +3597,17 @@ def main(argv=None) -> int:
         ("plain_update_max_memory_allocated_mb", options["numbers"]["remat"]["peak_mib_plain"],
          "MiB, the same update without --remat"),
         ("options_phase_seconds", options["numbers"]["seconds"], "s"),
+        ("mesh_phase_seconds", mesh["numbers"]["seconds"], "s"),
+    ] + [
+        (f"mesh_serve_{k}_{name}", rec[f"bf16_serve_{k}"], unit)
+        for name, rec in mesh["numbers"]["logical"]["serving"].items() if name.startswith("data")
+        for k, unit in (("imgs_per_s", "images/s at micro-batch 63/64, R50 x 3, bf16, logical mesh on one card, "
+                                       "host clock"), ("p50_ms", "ms per 64-pair request"))
+    ] + [
+        (f"mesh_{name}_update_ms", rec["update_ms"], "ms per bf16 update of 64 pairs on a logical mesh, host clock "
+         f"(unsharded: {rec['unsharded_update_ms']:.1f} ms)")
+        for name, rec in mesh["numbers"]["logical"]["training"].items() if name.startswith("spatial")
+        and "update_ms" in rec
     ] + [
         (f"{name}_ms_per_step", rec["ms"], "ms over the step's 106 BN calls at 64 pairs, bf16"
          + (f" (k=1 {rec['k1_kernel']} beside it: {rec['k1_ms']} ms)" if "k1_ms" in rec else ""))
@@ -3168,15 +3624,17 @@ def main(argv=None) -> int:
 
     dp_ranks = {k: sum(r[k] for per_dtype in options["dp_launches"] for r in per_dtype)
                 for k in list(PER_STEP) + ["bn_stats_finish", "bn_bwd_finish"]}
+    mesh_fusion = mesh["serving_launches"] + mesh["launches"].get("fusion", 0)
     kernels = [{
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
                     + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"]
-                    + options["launches"]["fusion"] + dp_ranks["fusion"],
+                    + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion,
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
                              "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"],
-                             "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"]},
+                             "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"],
+                             "mesh_spatial": mesh_fusion},
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
                                 + surface["by_variant"][k] for k in fusion.VARIANTS},
@@ -3192,15 +3650,19 @@ def main(argv=None) -> int:
         "source": BN_SOURCE,
         "replaces": replaces,
         "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind]
-                    + family["launches"][kind] + options["launches"][kind] + dp_ranks[kind],
+                    + family["launches"][kind] + options["launches"][kind] + dp_ranks[kind]
+                    + mesh["launches"].get(kind, 0),
         "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
                              "cli": cli["launches"][kind], "model_family": family["launches"][kind],
-                             "options": options["launches"][kind], "data_parallel_ranks": dp_ranks[kind]},
-        **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]]} if kind in DP_FINISH else {}),
+                             "options": options["launches"][kind], "data_parallel_ranks": dp_ranks[kind],
+                             "mesh_spatial": mesh["launches"].get(kind, 0)},
+        **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]],
+            "finish_launches_mesh_spatial": mesh["launches"].get(DP_FINISH[kind], 0)} if kind in DP_FINISH else {}),
         **{f"{name}_ms": rec["ms"] for name, rec in options["numbers"]["options_bn_ms_per_step"].items()
            if name.startswith(kind)},
         "max_abs_err": max(bn_err[kind], family["numbers"]["bn_max_abs_err_bf16"][kind],
-                           options["numbers"]["prefix_bn_max_abs_err_bf16"].get(kind, 0.0)),
+                           options["numbers"]["prefix_bn_max_abs_err_bf16"].get(kind, 0.0),
+                           mesh["numbers"]["logical"]["training"]["strip_bn_max_abs_err_bf16"][kind]),
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],
         "bound_ms": bn_timing[kind]["bound_ms"],

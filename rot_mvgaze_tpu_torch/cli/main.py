@@ -28,7 +28,14 @@ ablations (``--encode_rotmat``, ``--share_feature``, ``--ignore_rotmat``,
 V-view model, its loss, dataset (HDF5 only, as in JAX) and steps. The
 combinations the JAX command line refuses are refused, before any data is
 read. ``--bn_stat_subsample``, ``--remat`` and ``--profile_steps`` /
-``--profile_dir`` run as in JAX. Options the port does not have yet are
+``--profile_dir`` run as in JAX. ``--spatial_partition N`` splits each
+image's height over N devices per process (``spatial_mesh``: the cards of
+this process's spatial group, or a ``--device`` list such as
+``cpu,cpu``), with every option of the stereo model, and data parallelism
+over torchrun's processes::
+
+    torchrun --nproc_per_node 2 -m rot_mvgaze_tpu_torch ... --spatial_partition 2   # 4 cards
+ Options the port does not have yet are
 refused before any data is read too, each naming its ``ROADMAP.md`` item; ``--use_pallas_fusion`` and
 ``--use_pallas_bn true|false`` parse, so JAX command lines run, and change
 nothing: on the card the port always runs its kernels.
@@ -152,7 +159,10 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
     p.add_argument("--dp", type=str2bool, default=True,
                    help="data parallelism over the processes torchrun starts (one card each); "
                         "false is refused with more than one process")
-    p.add_argument("--spatial_partition", type=int, default=1, help="not ported: only 1")
+    p.add_argument("--spatial_partition", type=int, default=1,
+                   help="split each image's height over N devices per process (halo rows between "
+                        "strips); needs --dp true and N devices: under torchrun process r takes "
+                        "cards r*N .. r*N+N-1")
     p.add_argument("--pairing", type=str, default="reference", choices=["reference", "rng"],
                    help="'reference': the reference's frozen pair index bit for bit; 'rng': a "
                         "seeded numpy generator")
@@ -165,7 +175,9 @@ def get_parser(**kwargs) -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="where the trace goes (default <output_dir>/profile; host_NN per process)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (the default; raises without a card) or cpu")
+                   help="cuda (the default; raises without a card), cpu, or a comma-separated list "
+                        "of this process's devices for --spatial_partition (repeats allowed: "
+                        "cuda:0,cuda:0 is a logical mesh on one card)")
     return p
 
 
@@ -173,7 +185,6 @@ def unported_options(config: Any) -> list:
     """The options ``config`` sets that the port does not have, each with
     the ``ROADMAP.md`` item that holds it."""
     refused = [
-        ("--spatial_partition > 1 (ROADMAP A13)", config.spatial_partition > 1),
         ("--use_pallas_bn residual (ROADMAP North star: on the card every train-mode BN runs "
          "the port's kernels)", config.use_pallas_bn == "residual"),
         ("--xla_compiler_options (no counterpart in the port)", config.xla_compiler_options is not None),
@@ -359,6 +370,38 @@ def check_config(config: Any, world: int = 1) -> None:
         raise SystemExit(f"--ema_decay must be in [0, 1), got {config.ema_decay}")
 
 
+def spatial_mesh(config: Any, world: int) -> Tuple[Any, list]:
+    """This process's mesh for ``--spatial_partition`` (None for 1) and the
+    visible devices it leaves idle, with the JAX command line's checks in
+    its words (``SystemExit``, before any data is read). The visible devices
+    are ``--device``'s (``parallel.visible_devices``); the mesh is ``(data
+    1, spatial sp)`` over sp of them: the first sp of a ``--device`` list,
+    else under torchrun process r's cards ``r·sp .. r·sp+sp−1``
+    (``parallel.global_mesh``), and data parallelism runs over the
+    processes."""
+    from rot_mvgaze_tpu_torch import parallel
+
+    sp = max(config.spatial_partition, 1)
+    visible = parallel.visible_devices(config.device)
+    if sp <= 1:
+        return None, []
+    if not (config.dp and len(visible) > 1):
+        raise SystemExit(f"--spatial_partition {sp} needs the mesh path: --dp true and >1 visible "
+                         f"device (have {len(visible)})")
+    if config.image_size % sp:
+        raise SystemExit(f"--spatial_partition {sp} must divide --image_size {config.image_size} "
+                         f"(even height shards)")
+    listed = "," in config.device
+    if listed and len(visible) < sp:
+        raise SystemExit(f"--spatial_partition {sp} takes {sp} devices per process, {len(visible)} listed")
+    try:
+        mesh = parallel.make_mesh(visible[:sp], spatial=sp) if listed else parallel.global_mesh(sp)
+    except ValueError as e:
+        raise SystemExit(f"--spatial_partition {sp} takes {sp} devices per process: {e}")
+    idle = (visible[sp:] if listed else [d for d in visible if d not in mesh.grid[0]]) if world == 1 else []
+    return mesh, idle
+
+
 def build_experiment(config: Any):
     """Datasets, loaders, model, loss and ``Trainer`` of ``config`` (a
     namespace from :func:`get_parser`; the JAX command line's
@@ -374,10 +417,18 @@ def build_experiment(config: Any):
     from rot_mvgaze_tpu_torch.utils.seed import set_seed
 
     check_config(config, parallel.configured_world_size())
-    device = resolve_device(config.device)
-    parallel.initialize(device.type)
+    device = resolve_device(config.device.split(",")[0])
+    mesh, idle = spatial_mesh(config, parallel.configured_world_size())
+    sp = max(config.spatial_partition, 1)
+    parallel.initialize(device.type, spatial=1 if "," in config.device else sp)
     world = parallel.process_count()
-    if device.type == "cuda" and world > 1:
+    if mesh is not None:
+        device = mesh.first_device
+        if idle:
+            print(f"{len(idle)} visible device(s) idle ({', '.join(map(str, idle))}): this process "
+                  f"takes {sp}; torchrun --nproc_per_node {len(idle) // sp + 1} -m "
+                  f"rot_mvgaze_tpu_torch ... --spatial_partition {sp} would use them", flush=True)
+    elif device.type == "cuda" and world > 1:
         device = torch.device("cuda", parallel.local_rank())
     elif device.type == "cuda" and torch.cuda.device_count() > 1:
         print(f"{torch.cuda.device_count()} cards visible; this process trains on one (start "
@@ -402,6 +453,9 @@ def build_experiment(config: Any):
         rounded = max(config.batch_size // ga, 1) * ga
         print(f"batch_size {config.batch_size} -> {rounded} (multiple of grad_accum={ga})")
         config.batch_size = rounded
+    if mesh is not None:
+        print(f"data-parallel mesh: {world * sp} devices across {world} process(es), spatial "
+              f"partition {sp} (dp {world}); global batch {config.batch_size}", flush=True)
     set_seed(config.seed, "cpu")
     process_shard = (parallel.process_index(), world) if world > 1 else None
     train_loader, test_loader = build_loaders(config, process_shard)
@@ -423,7 +477,7 @@ def build_experiment(config: Any):
         )
         loss = StereoL1Loss(rel_weight=0.01, reference_decay=1.0, distance_metric="angular_error")
     metrics = IterationLoss(loss=loss, iter_decay=0.5)
-    return Trainer(config, model, metrics, train_loader, test_loader, device=device)
+    return Trainer(config, model, metrics, train_loader, test_loader, device=device, mesh=mesh)
 
 
 def main(argv=None) -> int:

@@ -7,7 +7,8 @@ loader's own labels. A ragged last batch runs as it is. The breakdown
 groups the per-sample errors by camera (``idx_0 % 18``) and by subject
 (``dataset.idx_to_kv``). Stereo batches, V-view batches (``imgs``; the
 metric is view 0's) and, with ``single_view``, ``SingleViewGazeNet`` on
-``img_0`` alone.
+``img_0`` alone. The stereo evaluation runs over a device mesh too (height
+strips, ``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -70,10 +71,11 @@ def evaluate_gaze(
     image_size: int = 224,
     params: Optional[Dict[str, torch.Tensor]] = None,
     single_view: bool = False,
+    mesh: Any = None,
 ) -> float:
     """Mean angular error (degrees, float64 on the host) over a test loader."""
     return evaluate_gaze_detailed(model, loader, image_size=image_size, params=params,
-                                  single_view=single_view)["mean_error"]
+                                  single_view=single_view, mesh=mesh)["mean_error"]
 
 
 def evaluate_gaze_detailed(
@@ -84,6 +86,7 @@ def evaluate_gaze_detailed(
     image_size: int = 224,
     params: Optional[Dict[str, torch.Tensor]] = None,
     single_view: bool = False,
+    mesh: Any = None,
 ) -> Dict[str, Any]:
     """The eval protocol and its breakdown (:func:`breakdown_from_errors`)
     over ``loader``, on the model's device and with its parameters (or
@@ -91,7 +94,9 @@ def evaluate_gaze_detailed(
     ``single_view``: a ``SingleViewGazeNet`` on each batch's ``img_0`` (a
     ``GazeDataset(stereo=False)`` loader, or a stereo one); otherwise the
     stereo model. ``per_subject`` needs ``dataset`` and a loader that
-    yields it in order."""
+    yields it in order. ``mesh``: the stereo model's eval step over a
+    device mesh of this process (``make_eval_step(mesh=)``; the model on its
+    first device, with the spatial floor of a 2-D mesh set)."""
     # train imports this module
     from rot_mvgaze_tpu_torch.train.steps import make_eval_step, make_single_view_eval_step
 
@@ -99,7 +104,7 @@ def evaluate_gaze_detailed(
     if single_view:
         step, keys = make_single_view_eval_step(model, image_size), SINGLE_VIEW_EVAL_KEYS
     else:
-        step, keys = make_eval_step(model, image_size), EVAL_KEYS
+        step, keys = make_eval_step(model, image_size, mesh=mesh), EVAL_KEYS
     pred, gt, idx_0 = eval_predictions(step, loader, device, keys, params)
     return breakdown_from_errors(angular_error_numpy(pred, gt), idx_0=idx_0, dataset=dataset)
 

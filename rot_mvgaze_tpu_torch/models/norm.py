@@ -20,7 +20,10 @@ train-mode statistics: ``stat_subsample`` (the JAX package's
 statistics, and the running variance unbiased with the global count).
 Inside :func:`recomputing` (the backward's recompute of a checkpointed
 block under ``remat``) the train forward changes no buffer, as JAX's
-recompute changes no state.
+recompute changes no state. A ``parallel.spatial.Sharded`` input (height
+strips over a mesh) takes the whole batch's statistics, every strip's rows
+counted, and moves the running statistics once per call; the subsample's
+prefix is the same images on every strip.
 
 :class:`IntensityBatchNorm` is the ``share_feature`` fuser's normaliser of
 rotatable features (counterpart of ``IntensityBatchNorm`` in
@@ -31,13 +34,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional
+from typing import Any, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rot_mvgaze_tpu_torch.ops.batchnorm import fused_batchnorm_act, stat_rows
+from rot_mvgaze_tpu_torch.ops.batchnorm import fused_batchnorm_act, fused_batchnorm_act_blocks, stat_rows
+from rot_mvgaze_tpu_torch.parallel.spatial import Sharded, on
 
 _state = threading.local()
 
@@ -68,9 +72,9 @@ class BatchNormAct(nn.BatchNorm2d):
         self.stat_subsample = 1
         self.group = None
 
-    def forward(
-        self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
+    def forward(self, x: Any, residual: Optional[Any] = None) -> Any:
+        if isinstance(x, Sharded):
+            return self._forward_blocks(x, residual)
         if not self.training:
             out = super().forward(x)
             if residual is not None:
@@ -82,8 +86,36 @@ class BatchNormAct(nn.BatchNorm2d):
         y, mean, var = fused_batchnorm_act(
             x, self.weight, self.bias, residual, self.eps, self.relu, self.stat_subsample, self.group
         )
-        if is_recomputing():
-            return y
+        if not is_recomputing():
+            self._track(mean, var, n)
+        return y
+
+    def _forward_blocks(self, x: Sharded, residual: Optional[Sharded]) -> Sharded:
+        """The forward over height strips (``parallel/spatial.py``): in eval
+        each strip normalises with the running statistics on its device; in
+        training the statistics are the whole batch's, every strip counted
+        (:func:`fused_batchnorm_act_blocks`), and the running statistics
+        move once per call."""
+        if not self.training:
+            def one(t, r):
+                dev = t.device
+                out = F.batch_norm(t, on(self.running_mean, dev, self), on(self.running_var, dev, self),
+                                   on(self.weight, dev, self), on(self.bias, dev, self), False, 0.0, self.eps)
+                if r is not None:
+                    out = out + r
+                return F.relu(out) if self.relu else out
+
+            return x.map2(residual, one)
+        res = None if residual is None else [[r.to(x.dtype) for r in row] for row in residual.rows]
+        ys, mean, var, n = fused_batchnorm_act_blocks(
+            x.rows, self.weight, self.bias, res, self.eps, self.relu, self.stat_subsample, self.group
+        )
+        if not is_recomputing():
+            self._track(mean, var, n)
+        return Sharded(ys)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """The running statistics' move by one batch's statistics over n rows."""
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             # momentum None: cumulative average, as nn.BatchNorm2d
@@ -91,12 +123,12 @@ class BatchNormAct(nn.BatchNorm2d):
                 self.momentum if self.momentum is not None
                 else 1.0 / float(self.num_batches_tracked)
             )
+            mean, var = mean.to(self.running_mean.dtype), var.to(self.running_var.dtype)
             self.running_mean.lerp_(mean, factor)
             # n / max(n - 1, 1), as the JAX package: one value per channel
             # (batch variance 0) blends a running variance of 0, where
             # nn.BatchNorm2d would raise
             self.running_var.lerp_(var * (n / max(n - 1, 1)), factor)
-        return y
 
 
 class IntensityBatchNorm(nn.Module):

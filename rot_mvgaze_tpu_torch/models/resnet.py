@@ -16,7 +16,17 @@ is the float model's). ``bn_stat_subsample`` sets every BatchNorm's
 train-mode statistics to the batch's first ``B // k`` images, and ``remat``
 recomputes each residual block in the backward
 (``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does; the
-stem is not recomputed. Spatial partitioning is not ported.
+stem is not recomputed.
+
+Spatial partitioning: with ``spatial_unshard`` set (by
+``parallel.with_spatial_floor``) ``forward`` also takes images as height
+strips over a mesh (``parallel.spatial.Sharded``). The convs and the
+max-pool run on the strips with halo rows (:class:`Conv2d`,
+:class:`MaxPool2d`), the BatchNorms take the whole batch's statistics, the
+strips are gathered onto their group's first device before a stage whose
+output would leave fewer than 2 rows in a strip (at the stem and at each
+stage, as the JAX backbone's floor), and the pool returns ``(B, C)`` on the
+mesh's first device.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from torch.utils.checkpoint import checkpoint
 
 from rot_mvgaze_tpu_torch.models.norm import BatchNormAct, recomputing
 from rot_mvgaze_tpu_torch.ops import quant
+from rot_mvgaze_tpu_torch.parallel import spatial
+from rot_mvgaze_tpu_torch.parallel.spatial import Sharded
 
 INT8_MODES = (False, True, "static")
 # the frozen static scale's range when a conv was never calibrated, as the
@@ -109,13 +121,35 @@ def calibrating(model: nn.Module) -> Iterator[None]:
             m.calibrating = False
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state-dict keys) that also
+    takes height strips (``parallel.spatial.Sharded``): the strip conv with
+    halo rows, ``parallel.spatial.conv2d``."""
+
+    def forward(self, x: Any) -> Any:
+        if isinstance(x, Sharded):
+            return spatial.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                                  self.groups, owner=self)
+        return super().forward(x)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` that also takes height strips
+    (``parallel.spatial.max_pool2d``: −inf only above and below the image)."""
+
+    def forward(self, x: Any) -> Any:
+        if isinstance(x, Sharded):
+            return spatial.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+        return super().forward(x)
+
+
 def _conv(
     in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1, int8: Any = False
 ) -> nn.Conv2d:
     kwargs = dict(stride=stride, padding=k // 2, groups=groups, bias=False)
     if int8:
         return QuantConv2d(in_ch, out_ch, k, int8=int8, **kwargs)
-    return nn.Conv2d(in_ch, out_ch, k, **kwargs)
+    return Conv2d(in_ch, out_ch, k, **kwargs)
 
 
 class BasicBlock(nn.Module):
@@ -219,7 +253,10 @@ class ResNet(nn.Module):
         self.remat = remat
         self.conv1 = _conv(3, 64, 7, 2, int8=int8)
         self.bn1 = BatchNormAct(64, relu=True)
-        self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
+        # the spatial floor's strip count, set by parallel.with_spatial_floor
+        # (the JAX backbone's spatial_unshard); None: no strips accepted
+        self.spatial_unshard: Optional[int] = None
         inplanes = 64
         for stage_i, (planes, num_blocks) in enumerate(
             zip((64, 128, 256, 512), stage_sizes)
@@ -248,18 +285,34 @@ class ResNet(nn.Module):
             elif isinstance(m, BatchNormAct):
                 m.stat_subsample = bn_stat_subsample
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2).to(self.conv1.weight.dtype)
+    def forward(self, x: Any) -> torch.Tensor:
+        sharded = isinstance(x, Sharded)
+        if sharded and self.spatial_unshard is None:
+            raise ValueError("height strips need the backbone's spatial floor: "
+                             "parallel.with_spatial_floor(model, mesh)")
+
+        def floor(x, total_stride):
+            # gather the strips before a stage whose output would leave < 2
+            # rows in one (models/resnet.py of the JAX package, :446,496)
+            return spatial.floor_check(x, total_stride, self.spatial_unshard) if sharded else x
+
+        dtype = self.conv1.weight.dtype
+        if sharded:
+            x = x.map(lambda t: t.permute(0, 3, 1, 2).to(dtype), hdim=2)
+        else:
+            x = x.permute(0, 3, 1, 2).to(dtype)
+        x = floor(x, 4)  # stem: conv1 (s2) + maxpool (s2)
         x = self.maxpool(self.bn1(self.conv1(x)))
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+        for stage_i, stage in enumerate((self.layer1, self.layer2, self.layer3, self.layer4)):
+            x = floor(x, 1 if stage_i == 0 else 2)
             for block in stage:
                 if remat:
                     x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
                                    context_fn=_recompute_context)
                 else:
                     x = block(x)
-        return x.mean(dim=(2, 3))
+        return spatial.mean_pool(x) if sharded else x.mean(dim=(2, 3))
 
 
 def resnet18(**kwargs: Any) -> ResNet:

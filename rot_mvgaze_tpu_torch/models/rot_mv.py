@@ -36,6 +36,7 @@ from rot_mvgaze_tpu_torch.models.blocks import Mlp
 from rot_mvgaze_tpu_torch.models.norm import IntensityBatchNorm
 from rot_mvgaze_tpu_torch.models.resnet import BACKBONES
 from rot_mvgaze_tpu_torch.ops import fusion
+from rot_mvgaze_tpu_torch.parallel import spatial
 
 NUM_FEAT_VEC = 512
 
@@ -240,6 +241,18 @@ class FeatRotationSymm(nn.Module):
                 make_head() for _ in range(num_iter)
             )
 
+    @property
+    def spatial_unshard(self) -> Optional[int]:
+        """The backbone's spatial floor (``parallel.with_spatial_floor``):
+        with it set, ``img_0`` and ``img_1`` may arrive as height strips
+        (``parallel.spatial.Sharded``), and every backbone call runs on
+        them."""
+        return self._feat_extractor[0].spatial_unshard
+
+    @spatial_unshard.setter
+    def spatial_unshard(self, value: Optional[int]) -> None:
+        self._feat_extractor[0].spatial_unshard = value
+
     def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
         img_0, img_1 = data["img_0"], data["img_1"]
         rot_0 = data["rot_0"].float()
@@ -257,7 +270,7 @@ class FeatRotationSymm(nn.Module):
             rot_feat_0 = self._lifter(img_feat_0)
             rot_feat_1 = self._lifter(img_feat_1)
         else:
-            both = self._feat_extractor(torch.cat([img_0, img_1], dim=0))
+            both = self._feat_extractor(spatial.cat_batch([img_0, img_1]))
             lifted = self._lifter(both)
             img_feat_0, img_feat_1 = both[:n], both[n:]
             rot_feat_0, rot_feat_1 = lifted[:n], lifted[n:]

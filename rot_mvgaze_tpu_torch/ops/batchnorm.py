@@ -26,6 +26,13 @@ stored). Two options change the rows the statistics cover (N below):
   the kernels' own arithmetic. dscale and dbias stay this rank's sums (the
   gradient average over ranks adds them up), as ``SyncBatchNorm`` does.
 
+:func:`fused_batchnorm_act_blocks` takes the batch as blocks on their own
+devices (height strips of a spatial mesh, ``parallel/spatial.py``; data
+replicas of one process): every block's ``sums=True`` launches, the sums
+added on the first block's device (then all-reduced over ``group``), one
+finish, each block's apply; the backward likewise. One block is the
+one-launch path.
+
 Each wrapper launches its hand-written CUDA kernel
 (``csrc/batchnorm.cu``) for a CUDA tensor, counted in ``.launches``, and runs
 its plain PyTorch version (``*_reference``) for a CPU tensor. It never falls
@@ -40,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -115,10 +122,11 @@ def bn_stats_sums_reference(x2):
 
 
 def bn_stats_finish_reference(sums, scale, bias, eps):
-    """bn_stats' (mean, var, rstd, a, b), float32, from (reduced) sums of
-    :func:`bn_stats_sums_reference`'s layout."""
+    """bn_stats' (mean, var, rstd, a, b), float32 (float64 for float64
+    ``scale``), from (reduced) sums of :func:`bn_stats_sums_reference`'s
+    layout."""
     c = scale.shape[0]
-    return _finish_stats(sums[:c], sums[c:2 * c], float(sums[2 * c]), torch.float32, scale, bias, eps)
+    return _finish_stats(sums[:c], sums[c:2 * c], float(sums[2 * c]), _acc(scale), scale, bias, eps)
 
 
 def bn_apply_reference(x2, a, b, res2, relu):
@@ -710,3 +718,167 @@ def fused_batchnorm_act(
 
 
 fused_batchnorm_act.grad_copies = 0
+
+
+def sharded_stat_rows(n: int, heights: Sequence[Sequence[int]], width: int, subsample: int = 1,
+                      group=None) -> Tuple[int, List[List[int]]]:
+    """``(count, local)`` of :func:`stat_rows` for a batch held as blocks:
+    ``heights[d][s]`` is the height of data replica d's strip s, each
+    replica ``n`` images of ``width`` columns. The global batch is the
+    ranks' batches in rank order, each rank's its replicas' in order; the
+    ``subsample`` prefix is its first ``B // k`` images, which on every
+    strip are the same images' rows: ``local[d][s]`` rows of block (d, s),
+    a prefix of its (n*h*w, C) view."""
+    if subsample < 1:
+        raise ValueError(f"subsample must be >= 1, got {subsample}")
+    world, rank = (1, 0) if group is None else (group.size(), group.rank())
+    reps = len(heights)
+    total = world * reps * n
+    if subsample > 1 and total < 2 * subsample:
+        raise ValueError(f"stat_subsample={subsample} leaves <2 of {total} batch rows")
+    prefix = total // subsample
+    count = prefix * sum(heights[0]) * width
+    local = [[min(max(prefix - (rank * reps + d) * n, 0), n) * h * width for h in hs]
+             for d, hs in enumerate(heights)]
+    return count, local
+
+
+class _FusedBatchNormActBlocks(torch.autograd.Function):
+    """:class:`_FusedBatchNormAct` over blocks on their own devices: each
+    block's float64 sums, added on the first block's device (and all-reduced
+    over ``group``), one finish, then each block's apply; the backward
+    likewise through bn_bwd_reduce's sums, bn_bwd_finish and each block's
+    bn_bwd_dx. ``tensors`` is the blocks' x, then their residuals."""
+
+    @staticmethod
+    def forward(ctx, spec, scale, bias, *tensors):
+        m, has_res, eps, relu, local, count, group = spec
+        with torch.autocast(scale.device.type, enabled=False):
+            xs = [t.contiguous(memory_format=torch.channels_last) for t in tensors[:m]]
+            res = ([_rows(t.contiguous(memory_format=torch.channels_last)) for t in tensors[m:]]
+                   if has_res else [None] * m)
+            c = scale.shape[0]
+            total = None
+            for x, rows in zip(xs, local):
+                x2 = _rows(x)
+                if rows:
+                    part = bn_stats(x2 if rows == x2.shape[0] else x2[:rows], scale.to(x.device),
+                                    bias.to(x.device), eps, sums=True)
+                else:  # none of the prefix is this block's
+                    part = x2.new_zeros(2 * c + 1, dtype=torch.float64)
+                part = part.to(scale.device)
+                total = part if total is None else total + part
+            if group is not None:
+                torch.distributed.all_reduce(total, group=group)
+            mean, var, rstd, a, b = bn_stats_finish(total, scale, bias, eps)
+            ys = []
+            for x, r2 in zip(xs, res):
+                n_, c_, h, w = x.shape
+                y2 = bn_apply(_rows(x), a.to(x.device), b.to(x.device), r2, relu)
+                ys.append(y2.reshape(n_, h, w, c_).permute(0, 3, 1, 2))
+        ctx.set_materialize_grads(False)
+        ctx.spec = spec
+        ctx.save_for_backward(scale, mean, rstd, total, *xs, *(ys if relu else ()))
+        return (*ys, mean, var)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        m, has_res, eps, relu, local, count, group = ctx.spec
+        saved = ctx.saved_tensors  # unpacked once (remat's recompute hooks allow no more)
+        scale, mean, rstd, total = saved[:4]
+        xs = saved[4:4 + m]
+        ys = saved[4 + m:] if relu else [None] * m
+        gmean, gvar = grads[m], grads[m + 1]
+        dev0 = scale.device
+        with torch.autocast(dev0.type, enabled=False):
+            gs, ks, parts = [], [], []
+            for x, y, g in zip(xs, ys, grads[:m]):
+                if g is None:
+                    g = torch.zeros_like(x, memory_format=torch.channels_last)
+                g, copied = _channels_last(g)
+                fused_batchnorm_act.grad_copies += int(copied)
+                if g.dtype != x.dtype:
+                    raise TypeError(f"the gradient of y is {g.dtype}, y is {x.dtype}")
+                gs.append(g)
+                dev = x.device
+                _, _, k, gsums = bn_bwd_reduce(_rows(g), _rows(y) if relu else None, _rows(x), mean.to(dev),
+                                               rstd.to(dev), scale.to(dev), relu, count=count, sums=True)
+                ks.append(k)
+                parts.append(gsums.to(dev0))
+            mine = functools.reduce(torch.add, parts)
+            c = scale.shape[0]
+            # dscale and dbias: this process's sums, as one launch over its rows forms them
+            dscale, dbias = mine[c:].to(torch.float32), mine[:c].to(torch.float32)
+            gtotal = mine
+            if group is not None:
+                gtotal = mine.clone()
+                torch.distributed.all_reduce(gtotal, group=group)
+                gmean, gvar = (None if t is None else _all_reduced(t, group) for t in (gmean, gvar))
+            mg, mgx = bn_bwd_finish(gtotal, total)
+            want_dres = has_res and relu
+            dxs, dres = [], []
+            for x, y, g, k, rows in zip(xs, ys, gs, ks, local):
+                dev = x.device
+                n_, c_, h, w = x.shape
+                dx2, dres2 = bn_bwd_dx(
+                    _rows(g), _rows(y) if relu else None, _rows(x), mean.to(dev), rstd.to(dev),
+                    k, mg.to(dev), mgx.to(dev),
+                    None if gmean is None else gmean.to(dev), None if gvar is None else gvar.to(dev),
+                    relu, want_dres, stat_rows=rows, count=count,
+                )
+                dxs.append(dx2.reshape(n_, h, w, c_).permute(0, 3, 1, 2))
+                if has_res:
+                    dres.append(dres2.reshape(n_, h, w, c_).permute(0, 3, 1, 2) if want_dres else g)
+        return (None, dscale.to(scale.dtype), dbias, *dxs, *dres)
+
+
+def fused_batchnorm_act_blocks(
+    xs: Sequence[Sequence[torch.Tensor]],
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    residuals: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+    eps: float = 1e-5,
+    relu: bool = True,
+    subsample: int = 1,
+    group=None,
+) -> Tuple[List[List[torch.Tensor]], torch.Tensor, torch.Tensor, int]:
+    """:func:`fused_batchnorm_act` over a batch held as blocks:
+    ``xs[d][s]`` (N, C, h, W) is data replica d's height strip s, on its own
+    device (``parallel/spatial.py``); ``scale`` and ``bias`` live on the
+    first block's device. The statistics are those of the whole batch (and
+    of ``group``'s, with the ranks' batches): every block runs bn_stats'
+    sums, added in-process on the first device, all-reduced over ``group``
+    when there is one, then bn_stats_finish; bn_apply runs on each block.
+    The backward runs bn_bwd_reduce's sums on each block, bn_bwd_finish and
+    each block's bn_bwd_dx. ``subsample`` k: the first ``B // k`` images of
+    the global batch (:func:`sharded_stat_rows`). A single block is the
+    one-block path itself (:func:`fused_batchnorm_act`), bit for bit.
+
+    Returns ``(ys, batch_mean, batch_var, count)``: ys in the blocks'
+    layout, the statistics float32 on the first device, ``count`` the rows
+    they cover."""
+    heights = [[t.shape[2] for t in row] for row in xs]
+    first = xs[0][0]
+    count, local = sharded_stat_rows(first.shape[0], heights, first.shape[3], subsample, group)
+    for row in xs:
+        for t in row:
+            if t.dim() != 4 or t.shape[0] != first.shape[0] or t.shape[1] != first.shape[1] \
+                    or t.shape[3] != first.shape[3] or t.dtype != first.dtype:
+                raise ValueError(f"blocks must share N, C, W and dtype: {tuple(t.shape)} {t.dtype} "
+                                 f"against {tuple(first.shape)} {first.dtype}")
+    flat = [t for row in xs for t in row]
+    flat_res = None if residuals is None else [t for row in residuals for t in row]
+    if len(flat) == 1:
+        y, mean, var = fused_batchnorm_act(flat[0], scale, bias, None if flat_res is None else flat_res[0],
+                                           eps, relu, subsample, group)
+        return [[y]], mean, var, count
+    if flat_res is not None:
+        for x, r in zip(flat, flat_res):
+            if r.shape != x.shape or r.dtype != x.dtype:
+                raise ValueError(f"residual must match x ({tuple(x.shape)}, {x.dtype}); got "
+                                 f"{tuple(r.shape)}, {r.dtype}")
+    spec = (len(flat), flat_res is not None, eps, relu, [r for row in local for r in row], count, group)
+    out = _FusedBatchNormActBlocks.apply(spec, scale, bias, *flat, *(flat_res or ()))
+    ys, mean, var = out[:-2], out[-2], out[-1]
+    it = iter(ys)
+    return [[next(it) for _ in row] for row in xs], mean, var, count

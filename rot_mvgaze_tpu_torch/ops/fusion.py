@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -48,6 +49,7 @@ _BLOCKS_PER_SM = 4
 _WG_BM, _WG_BK, _WG_MAX_CLUSTER = 128, 64, 8
 VARIANTS = ("wgmma", "generic")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_COUNT_LOCK = threading.Lock()
 
 
 def rotate_concat_matmul_relu_reference(
@@ -241,8 +243,9 @@ def rotate_concat_matmul_relu(
         raise RuntimeError(
             f"rotate_concat_matmul_relu ({variant}) launch failed: cudaError_t {err}"
         )
-    rotate_concat_matmul_relu.launches += 1
-    rotate_concat_matmul_relu.launches_by_variant[variant] += 1
+    with _COUNT_LOCK:  # mesh serving launches from one host thread per replica
+        rotate_concat_matmul_relu.launches += 1
+        rotate_concat_matmul_relu.launches_by_variant[variant] += 1
     return out
 
 

@@ -16,6 +16,11 @@ into N independent runs. Device tensors go only through ``all_reduce``,
 which both backends offer on CUDA tensors; host metadata goes through a CPU
 ``gloo`` group (:func:`host_group`).
 
+With ``--spatial_partition sp`` each process drives a spatial group of
+``sp`` cards, ``cuda:{LOCAL_RANK·sp}`` onwards (:func:`global_mesh`), and
+the BatchNorm statistics' group is still every process: the strips' sums
+are added in the process first (``ops/batchnorm.py``).
+
 Each rank loads its strided shard of every epoch's order
 (``data.pipeline.epoch_order``), and the global batch is the rank-ordered
 concatenation of the local batches, as with JAX's
@@ -49,14 +54,15 @@ def configured_world_size() -> int:
 
 
 def initialize(device_type: str = "cuda", backend: Optional[str] = None,
-               timeout_s: float = 600.0) -> bool:
+               timeout_s: float = 600.0, spatial: int = 1) -> bool:
     """Join the process group that torchrun's environment describes.
 
     Returns False (and does nothing) when no cluster is configured or the
     group already exists. ``backend`` defaults to ``nccl`` for
     ``device_type`` ``cuda`` and ``gloo`` for ``cpu``. Under ``cuda`` the
-    rank's device becomes ``cuda:{LOCAL_RANK}``. Any failure to start a
-    configured group raises ``RuntimeError``."""
+    rank's device becomes :func:`rank_device`: ``cuda:{LOCAL_RANK}``, or
+    with ``spatial`` cards per process the first of its group. Any failure
+    to start a configured group raises ``RuntimeError``."""
     global _host_group
     if dist.is_available() and dist.is_initialized():
         return False
@@ -71,7 +77,7 @@ def initialize(device_type: str = "cuda", backend: Optional[str] = None,
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
     if device_type == "cuda":
-        torch.cuda.set_device(local_rank())
+        torch.cuda.set_device(rank_device(spatial))
     try:
         dist.init_process_group(
             backend,
@@ -108,6 +114,33 @@ def process_count() -> int:
 def local_rank() -> int:
     """``LOCAL_RANK`` (0 without it): the card index of this process."""
     return int(os.environ.get("LOCAL_RANK", "0") or 0)
+
+
+def rank_cards(spatial: int = 1) -> list:
+    """This process's cards under torchrun with ``spatial`` cards per
+    process (one spatial group each): ``cuda:{LOCAL_RANK·sp + j}``,
+    ``j < sp``."""
+    first = local_rank() * max(spatial, 1)
+    return [torch.device("cuda", first + j) for j in range(max(spatial, 1))]
+
+
+def rank_device(spatial: int = 1) -> torch.device:
+    """The card this process keeps its state on: its group's first."""
+    return rank_cards(spatial)[0]
+
+
+def global_mesh(spatial: int = 1) -> Any:
+    """This process's mesh (counterpart of the JAX package's
+    ``global_mesh``, whose mesh spans every process): its spatial group of
+    ``spatial`` cards (:func:`rank_cards`), ``(data 1, spatial sp)``; the
+    data axis is the processes, over which training runs as above."""
+    from rot_mvgaze_tpu_torch.parallel.mesh import make_mesh
+
+    cards = rank_cards(spatial)
+    if cards[-1].index >= torch.cuda.device_count():
+        raise ValueError(f"local rank {local_rank()} needs cards {cards[0].index}..{cards[-1].index}, "
+                         f"{torch.cuda.device_count()} visible")
+    return make_mesh(cards, spatial=spatial)
 
 
 def device_group() -> Any:

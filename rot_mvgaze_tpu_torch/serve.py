@@ -4,7 +4,8 @@
     python -m rot_mvgaze_tpu_torch.serve --ckpt model.pth.tar [--port 8347] \
         [--backbone_depth 50 --num_iter 3 --micro_batch 64 --f32] \
         [--share_weights | --ignore_rotmat | --encode_rotmat | --share_feature] \
-        [--num_views V] [--int8 | --int8_static [--calibration ranges.msgpack]]
+        [--num_views V] [--int8 | --int8_static [--calibration ranges.msgpack]] \
+        [--dp] [--spatial_partition N] [--device cuda | cpu | DEVICE,DEVICE,...]
 
 API:
   GET  /healthz   -> {"status": "ok", "requests": ..., "samples": ..., ...}
@@ -17,9 +18,19 @@ With ``--num_views V`` (V > 2) the server runs the V-view model and
 stereo checkpoint loads at any V. ``--int8`` runs the backbone's convs on
 int8 with dynamic activation scales, ``--int8_static`` with calibrated ones
 (calibrated on the first request, or loaded from ``--calibration`` and
-saved there after the first calibration). ``--dp`` and
-``--spatial_partition > 1`` (serving over several cards) are not ported
-(ROADMAP A13): the server exits before it loads anything.
+saved there after the first calibration).
+
+``--dp`` serves each micro-batch over every visible device (data-parallel
+replicas), and ``--spatial_partition N`` splits each image's height over
+groups of N devices (halo rows between strips), with data parallelism over
+the groups: a ``(data, spatial)`` mesh (``parallel.make_mesh``), as the JAX
+package's server builds it. The visible devices are every card with
+``--device cuda``, one CPU with ``--device cpu``, or the comma-separated
+list given (a device may repeat: ``--device cuda:0,cuda:0`` is a logical
+mesh on one card). With one visible device ``--dp`` serves on it, and
+``--spatial_partition N > 1`` is refused. N must divide ``--image_size``;
+the V-view server (``--num_views > 2``) and int8 (ROADMAP A13: int8 under a
+mesh) take no mesh. Refusals exit before anything loads.
 
 A malformed request gets 400, a body over the size cap 413, a failure of
 the server 500.
@@ -151,43 +162,71 @@ def get_parser() -> argparse.ArgumentParser:
                    help="with --int8_static: the calibration file to load if present and "
                         "to save after the first calibration")
     p.add_argument("--dp", action="store_true",
-                   help="not ported (ROADMAP A13): serving over several cards")
+                   help="split each micro-batch over every visible device (data-parallel serving; "
+                        "the model copied to each)")
     p.add_argument("--spatial_partition", type=int, default=1,
-                   help="not ported (ROADMAP A13): only 1")
-    p.add_argument("--device", default="cuda")
+                   help="split each image's height over groups of N devices (halo rows between "
+                        "strips); combines with --dp over the device count / N groups")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (every card visible), cpu, or a comma-separated list of the devices "
+                        "to serve on (repeats allowed: cuda:0,cuda:0 is a logical mesh on one card)")
     p.add_argument("--coalesce_ms", type=float, default=2.0,
                    help="max wait to fill a shared micro-batch from concurrent requests")
     return p
 
 
+def serves_on_a_mesh(args: argparse.Namespace) -> bool:
+    """Whether the flags build a mesh: ``--dp`` or ``--spatial_partition >
+    1``, and more than one visible device, as in the JAX package's server."""
+    from rot_mvgaze_tpu_torch.parallel.mesh import visible_devices
+
+    return (args.dp or args.spatial_partition > 1) and len(visible_devices(args.device)) > 1
+
+
 def refused(args: argparse.Namespace) -> List[str]:
     """What this server refuses of the parsed flags, before it loads
-    anything: serving over several cards, and for V > 2 the stereo-only
-    ablations, as the JAX package's server does."""
-    bad = [flag for flag, on in (
-        ("--dp (ROADMAP A13)", args.dp),
-        ("--spatial_partition > 1 (ROADMAP A13)", args.spatial_partition > 1),
-    ) if on]
+    anything, in the JAX package's server's words: for V > 2 spatial
+    partitioning and the stereo-only ablations, a spatial partition without
+    more than one visible device or that does not divide the image size;
+    and int8 under a mesh (not ported)."""
+    from rot_mvgaze_tpu_torch.parallel.mesh import visible_devices
+
+    bad = []
+    sp = max(args.spatial_partition, 1)
     if args.num_views < 2:
         bad.append(f"--num_views {args.num_views} (must be >= 2)")
     if args.num_views > 2:
         bad += [f"--num_views {args.num_views} with {flag}" for flag, on in (
+            ("--spatial_partition > 1", sp > 1),
             ("--encode_rotmat", args.encode_rotmat),
             ("--share_feature", args.share_feature),
         ) if on]
+    n_devices = len(visible_devices(args.device))
+    if sp > 1 and n_devices <= 1:
+        bad.append(f"--spatial_partition {sp} needs >1 visible device (have {n_devices})")
+    elif sp > 1 and args.image_size % sp:
+        bad.append(f"--spatial_partition {sp} must divide --image_size {args.image_size}")
+    if serves_on_a_mesh(args) and (args.int8 or args.int8_static):
+        bad.append("--int8/--int8_static under a mesh (ROADMAP A13: int8 under a mesh)")
     return bad
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = get_parser().parse_args(argv)
-    bad = refused(args)
-    if bad:
-        raise SystemExit(f"not supported: {', '.join(bad)}")
-
+def build_predictor(args: argparse.Namespace):
+    """The predictor of the parsed flags (which :func:`refused` passed): on
+    a ``(data, spatial)`` mesh of the visible devices where the flags ask
+    for one (:func:`serves_on_a_mesh`), else on ``--device``."""
     import torch
 
-    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor, MultiViewGazePredictor
+    from rot_mvgaze_tpu_torch.parallel.mesh import dp_size, make_mesh, visible_devices
+    from rot_mvgaze_tpu_torch.serving import GazePredictor, MultiViewGazePredictor
 
+    mesh = None
+    sp = max(args.spatial_partition, 1)
+    if serves_on_a_mesh(args):
+        mesh = make_mesh(visible_devices(args.device), spatial=sp)
+        print(f"serving over {mesh.devices.size} devices"
+              + (f" (spatial partition {sp}, dp {dp_size(mesh)})" if sp > 1 else " (data-parallel)"),
+              flush=True)
     depth = int(args.backbone_depth) if args.backbone_depth.isdigit() else args.backbone_depth
     common = dict(
         backbone_depth=depth,
@@ -199,14 +238,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         dtype=torch.float32 if args.f32 else torch.bfloat16,
         int8="static" if args.int8_static else args.int8,
         calibration_path=args.calibration,
-        device=args.device,
+        device=args.device.split(",")[0],
+        mesh=mesh,
     )
     if args.num_views > 2:
-        predictor = MultiViewGazePredictor(args.ckpt, num_views=args.num_views, **common)
-    else:
-        predictor = GazePredictor(
-            args.ckpt, encode_rotmat=args.encode_rotmat, share_feature=args.share_feature, **common
-        )
+        return MultiViewGazePredictor(args.ckpt, num_views=args.num_views, **common)
+    return GazePredictor(args.ckpt, encode_rotmat=args.encode_rotmat, share_feature=args.share_feature, **common)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = get_parser().parse_args(argv)
+    bad = refused(args)
+    if bad:
+        raise SystemExit(f"not supported: {', '.join(bad)}")
+
+    from rot_mvgaze_tpu_torch.serving import BatchingPredictor
+
+    predictor = build_predictor(args)
     # every path before traffic (static int8: the calibration and the frozen
     # pass, the noise's ranges discarded)
     predictor.warmup()
@@ -216,7 +264,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     server = ThreadingHTTPServer(
         (args.host, args.port), build_handler(batching, stats, max_body_bytes=max_body)
     )
-    print(f"serving on {args.host}:{args.port} (micro_batch={args.micro_batch})", flush=True)
+    print(f"serving on {args.host}:{args.port} (micro_batch={predictor.micro_batch})", flush=True)
     try:
         server.serve_forever()
     finally:

@@ -23,17 +23,28 @@ single card).
 the pure forwards that the predictors run and that ``export.py`` traces.
 Requests are NHWC uint8 images and head poses, as in the JAX package. The
 predictors run on the card (``device="cuda"``) unless the caller asks for
-the CPU; with no card, the default raises. Mesh (data-parallel) serving is
-not ported.
+the CPU; with no card, the default raises.
+
+``mesh=`` (``parallel.make_mesh``) serves over a device mesh, as the JAX
+predictors do: the micro-batch rounds up to a multiple of the data axis,
+each micro-batch's rows split over the data replicas (one copy of the model
+per distinct device, one host thread per replica where the replicas' cards
+differ), and on a 2-D mesh each replica's views are cut into height strips
+over its spatial group (the backbone's floor set, ``image_size`` divisible
+by the spatial axis). ``MultiViewGazePredictor`` takes data-parallel meshes
+only, and int8 under a mesh is not ported (ROADMAP A13), as the JAX
+package's dynamic scale is one abs-max over the global array.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +57,8 @@ from rot_mvgaze_tpu_torch.geometry.gaze import rotation_matrix_2d
 from rot_mvgaze_tpu_torch.models.multiview import FeatRotationMultiView
 from rot_mvgaze_tpu_torch.models.resnet import INT8_MODES, calibrating
 from rot_mvgaze_tpu_torch.models.rot_mv import FeatRotationSymm
+from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, spatial_size, with_spatial_floor
+from rot_mvgaze_tpu_torch.parallel.spatial import shard_images
 from rot_mvgaze_tpu_torch.utils.device import resolve_device
 from rot_mvgaze_tpu_torch.utils.padding import iter_padded_microbatches
 
@@ -145,17 +158,27 @@ def _apply(model: nn.Module, state: Optional[Mapping[str, torch.Tensor]], data: 
     return torch.func.functional_call(model, dict(state), (data,), tie_weights=False)
 
 
-def make_serving_forward(model: nn.Module, image_size: int = 224) -> Callable[..., torch.Tensor]:
+def make_serving_forward(
+    model: nn.Module, image_size: int = 224, strips: Optional[Sequence[torch.device]] = None
+) -> Callable[..., torch.Tensor]:
     """Pure two-view serving forward: ``(state, img_0, img_1, head_pose_0,
     head_pose_1) -> (N, 2) float32 pitchyaw``, with uint8 images and float32
     poses on the model's device. ``state`` replaces the model's parameters
     and buffers (``torch.func.functional_call``), or is None for the
-    model's own. Shared by :class:`GazePredictor` and the exporter."""
+    model's own. Shared by :class:`GazePredictor` and the exporter.
+    ``strips``: a spatial group's devices; the preprocessed views are cut
+    into height strips over them (the counterpart of JAX's ``pin_images``),
+    which the model's backbone needs its floor for
+    (``parallel.with_spatial_floor``)."""
+
+    def views(img):
+        x = eval_preprocess(img, image_size)
+        return x if strips is None or len(strips) < 2 else shard_images(x, [list(strips)])
 
     def forward(state, img_0, img_1, head_pose_0, head_pose_1):
         data = {
-            "img_0": eval_preprocess(img_0, image_size),
-            "img_1": eval_preprocess(img_1, image_size),
+            "img_0": views(img_0),
+            "img_1": views(img_1),
             "rot_0": rotation_matrix_2d(head_pose_0),
             "rot_1": rotation_matrix_2d(head_pose_1),
         }
@@ -220,8 +243,9 @@ class GazePredictor:
         int8: Any = False,
         calibration_path: Optional[str] = None,
         device: Any = "cuda",
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.first_device)
         with self.device:  # built in place: the checkpoint replaces every tensor
             model = FeatRotationSymm(
                 backbone_depth=backbone_depth,
@@ -232,11 +256,25 @@ class GazePredictor:
                 ignore_rotmat=ignore_rotmat,
                 int8_backbone=int8,
             )
-        self._init_serving(model, checkpoint, micro_batch, image_size, dtype, int8, calibration_path)
+        self._init_serving(model, checkpoint, micro_batch, image_size, dtype, int8, calibration_path, mesh)
 
     # -------------------------------------------------- per-model hooks
-    def _make_forward(self) -> Callable[..., torch.Tensor]:
-        return make_serving_forward(self.model, self.image_size)
+    def _apply_mesh_model(self, mesh: Mesh, image_size: int) -> None:
+        """Adapt ``self.model`` to the mesh: the backbone's spatial floor on
+        a 2-D mesh, whose spatial axis must divide the image height."""
+        sp = spatial_size(mesh)
+        if sp > 1 and image_size % sp:
+            # uneven strips start at the stem and reach the < 2-row regime
+            # the floor exists to forbid
+            raise ValueError(
+                f"image_size {image_size} is not divisible by the mesh's spatial axis ({sp}); "
+                f"pick an even split"
+            )
+        self.model = with_spatial_floor(self.model, mesh)
+
+    def _make_forward(self, model: nn.Module, strips: Optional[Sequence[torch.device]] = None
+                      ) -> Callable[..., torch.Tensor]:
+        return make_serving_forward(model, self.image_size, strips)
 
     def _noise_request(self) -> Tuple[np.ndarray, ...]:
         """One throwaway request (N=1) for :meth:`warmup`."""
@@ -263,9 +301,15 @@ class GazePredictor:
         dtype: torch.dtype,
         int8: Any,
         calibration_path: Optional[str],
+        mesh: Optional[Mesh] = None,
     ) -> None:
         if int8 not in INT8_MODES:
             raise ValueError(f"int8 must be one of {INT8_MODES}, got {int8!r}")
+        if mesh is not None and int8:
+            # JAX's dynamic scale is one abs-max over the global array: under
+            # a mesh, a max across replicas and strips at every conv
+            raise ValueError(f"int8={int8!r} under a mesh is not ported (ROADMAP A13: int8 under a "
+                             f"mesh); serve int8 without a mesh")
         self._int8_static = int8 == "static"
         if calibration_path is not None and not self._int8_static:
             # only the static path reads or writes it; accepting it elsewhere
@@ -283,11 +327,29 @@ class GazePredictor:
         for m in self.model.modules():
             if not isinstance(m, nn.BatchNorm2d):
                 m._apply(lambda t: t.to(dtype) if t.is_floating_point() else t, recurse=False)
-        self.micro_batch = micro_batch
         self.image_size = image_size
+        self.mesh = mesh
+        self._replicas: List[Tuple[torch.device, Callable[..., torch.Tensor]]] = []
+        self._threaded = False
+        if mesh is not None:
+            self._apply_mesh_model(mesh, image_size)
+            # the micro-batch rounds up to a multiple of the data axis (the
+            # spatial axis splits height, not rows)
+            dp = dp_size(mesh)
+            micro_batch = -(-micro_batch // dp) * dp
+            # one copy of the model per distinct device that runs a
+            # replica's heads (its group's first); a strip's other devices
+            # take the parameters they need from spatial.on's cache
+            models = {self.device: self.model}
+            for group in mesh.grid:
+                if group[0] not in models:
+                    models[group[0]] = copy.deepcopy(self.model).to(group[0])
+            self._replicas = [(group[0], self._make_forward(models[group[0]], group)) for group in mesh.grid]
+            self._threaded = len(models) > 1  # replicas on distinct cards: one host thread each
+        self.micro_batch = micro_batch
         self.micro_batches_run = 0
         self._count_lock = threading.Lock()
-        self._forward = self._make_forward()
+        self._forward = self._make_forward(self.model)
         self._calibrated = False
         # calibration mutates the ranges; concurrent first requests must not
         # interleave the read-modify-write
@@ -356,18 +418,38 @@ class GazePredictor:
                 self._calibrated = True
         return np.concatenate(outs, axis=0)
 
-    @torch.inference_mode()
     def _run(self, request: Tuple[np.ndarray, ...]) -> np.ndarray:
         """One micro-batch: pixels stay uint8 (the rank >= 4 fields), every
-        other field goes as float32, whatever its incoming dtype."""
-        tensors = tuple(
-            torch.from_numpy(np.ascontiguousarray(a, np.uint8 if a.ndim >= 4 else np.float32)).to(self.device)
-            for a in map(np.asarray, request)
-        )
-        pred = self._forward(None, *tensors).cpu().numpy()
+        other field goes as float32, whatever its incoming dtype. Under a
+        mesh its rows split evenly over the data replicas, each run on its
+        own devices (from one host thread each where they are distinct
+        cards), and the replicas' predictions are concatenated in order."""
+        request = tuple(map(np.asarray, request))
+        if self.mesh is None:
+            pred = self._run_on(self.device, self._forward, request)
+        else:
+            n = request[0].shape[0] // len(self._replicas)
+            parts = [(device, forward, tuple(a[i * n:(i + 1) * n] for a in request))
+                     for i, (device, forward) in enumerate(self._replicas)]
+            if self._threaded:
+                with ThreadPoolExecutor(max_workers=len(parts)) as pool:
+                    outs = list(pool.map(lambda part: self._run_on(*part), parts))
+            else:
+                outs = [self._run_on(*part) for part in parts]
+            pred = np.concatenate(outs, axis=0)
         with self._count_lock:
             self.micro_batches_run += 1
         return pred
+
+    @staticmethod
+    @torch.inference_mode()
+    def _run_on(device: torch.device, forward: Callable[..., torch.Tensor],
+                request: Tuple[np.ndarray, ...]) -> np.ndarray:
+        tensors = tuple(
+            torch.from_numpy(np.ascontiguousarray(a, np.uint8 if a.ndim >= 4 else np.float32)).to(device)
+            for a in request
+        )
+        return forward(None, *tensors).cpu().numpy()
 
     def calibrate(
         self,
@@ -489,8 +571,9 @@ class MultiViewGazePredictor(GazePredictor):
         int8: Any = False,
         calibration_path: Optional[str] = None,
         device: Any = "cuda",
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.first_device)
         if num_views < 2:
             raise ValueError(f"num_views must be >= 2, got {num_views}")
         self.num_views = num_views
@@ -502,10 +585,18 @@ class MultiViewGazePredictor(GazePredictor):
                 ignore_rotmat=ignore_rotmat,
                 int8_backbone=int8,
             )
-        self._init_serving(model, checkpoint, micro_batch, image_size, dtype, int8, calibration_path)
+        self._init_serving(model, checkpoint, micro_batch, image_size, dtype, int8, calibration_path, mesh)
 
-    def _make_forward(self) -> Callable[..., torch.Tensor]:
-        return make_multiview_serving_forward(self.model, self.image_size)
+    def _apply_mesh_model(self, mesh: Mesh, image_size: int) -> None:
+        if spatial_size(mesh) > 1:
+            raise ValueError(
+                "MultiViewGazePredictor does not support spatial meshes (the V-view path is DP-only, "
+                "matching the training CLI); use a 1-D data mesh"
+            )
+
+    def _make_forward(self, model: nn.Module, strips: Optional[Sequence[torch.device]] = None
+                      ) -> Callable[..., torch.Tensor]:
+        return make_multiview_serving_forward(model, self.image_size)
 
     def _noise_request(self) -> Tuple[np.ndarray, ...]:
         rng = np.random.default_rng(0)

@@ -22,6 +22,7 @@ from torch import nn
 
 from rot_mvgaze_tpu_torch.augment.ops import eval_preprocess, train_preprocess
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error, rotation_matrix_2d
+from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, shard_batch
 
 
 def prepare_rotations(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -112,6 +113,7 @@ def make_train_step(
     with_images: bool = False,
     fold_key_by_step: bool = False,
     group: Any = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Dict[str, Any]]:
     """Returns ``train_step(batch, generator=None, *, step) -> stats``.
 
@@ -161,6 +163,14 @@ def make_train_step(
       means. Under ``grad_accum`` micro-batch ``a`` is rows ``a::A`` of
       each rank's batch, which together are rows ``a::A`` of the global
       batch.
+    - ``mesh``: a device mesh of this process (``parallel.make_mesh``),
+      whose first device holds the model and the batch. The augmentation
+      runs there, once, at full height, with the draws it takes without a
+      mesh; then each view's rows split over the data replicas and each
+      replica's height into strips over its group (``parallel.shard_batch``,
+      the counterpart of JAX's ``pin_images``), each micro-batch under
+      ``grad_accum``. The model needs its spatial floor on a 2-D mesh
+      (``parallel.with_spatial_floor``). The previews are full height.
     """
     check_step_options(compute_dtype, grad_accum, ema_decay, ema)
 
@@ -169,7 +179,7 @@ def make_train_step(
             imgs = augment_views(generator, mb, image_size, compute_dtype, group)
         else:
             imgs = {"img_0": mb["img_0"], "img_1": mb["img_1"]}
-        data = {**imgs, **prepare_rotations(mb)}
+        data = {**shard_batch(imgs, mesh), **prepare_rotations(mb)}
         return data, imgs, data["gt_gaze"]
 
     return build_train_step(
@@ -313,7 +323,8 @@ def average_over_ranks(model: nn.Module, loss: torch.Tensor, error: torch.Tensor
     return loss_sum / world, error_sum / world
 
 
-def make_eval_step(model: nn.Module, image_size: int = 224) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_eval_step(model: nn.Module, image_size: int = 224,
+                   mesh: Optional[Mesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns ``eval_step(batch, params=None) -> {pred_gaze, img_0, img_1}``.
 
     ``batch`` holds uint8 ``img_0``/``img_1`` and float head poses on the
@@ -322,21 +333,27 @@ def make_eval_step(model: nn.Module, image_size: int = 224) -> Callable[..., Dic
     off, whatever the training compute dtype, so the metric does not absorb
     bf16 rounding. ``params`` (by ``named_parameters`` name, e.g. the
     moving average) replace the module's own parameters for this call.
-    ``img_0``/``img_1`` are the first 8 preprocessed rows, for previews."""
+    ``img_0``/``img_1`` are the first 8 preprocessed rows, for previews.
+    ``mesh``: the preprocessed views are cut over it as in
+    :func:`make_train_step` (a batch that does not split over the data
+    replicas is padded by repeating its last row, and the padding's
+    predictions dropped)."""
 
     @torch.inference_mode()
     def eval_step(
         batch: Dict[str, torch.Tensor], params: Optional[Dict[str, torch.Tensor]] = None
     ) -> Dict[str, torch.Tensor]:
-        data = {
-            "img_0": eval_preprocess(batch["img_0"], image_size),
-            "img_1": eval_preprocess(batch["img_1"], image_size),
-            "rot_0": rotation_matrix_2d(batch["head_pose_0"].float()),
-            "rot_1": rotation_matrix_2d(batch["head_pose_1"].float()),
-        }
-        out = eval_forward(model, data, params)
-        return {"pred_gaze": out["pred_gaze"].float(), "img_0": data["img_0"][:8],
-                "img_1": data["img_1"][:8]}
+        imgs = {v: eval_preprocess(batch[v], image_size) for v in ("img_0", "img_1")}
+        rots = {"rot_0": rotation_matrix_2d(batch["head_pose_0"].float()),
+                "rot_1": rotation_matrix_2d(batch["head_pose_1"].float())}
+        rows = imgs["img_0"].shape[0]
+        previews = {v: imgs[v][:8] for v in ("img_0", "img_1")}
+        if rows % dp_size(mesh):
+            pad = dp_size(mesh) - rows % dp_size(mesh)
+            imgs, rots = ({k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])]) for k, v in d.items()}
+                          for d in (imgs, rots))
+        out = eval_forward(model, {**shard_batch(imgs, mesh), **rots}, params)
+        return {"pred_gaze": out["pred_gaze"][:rows].float(), **previews}
 
     return eval_step
 
@@ -363,7 +380,8 @@ def eval_forward(
     ``params`` (by ``named_parameters`` name) in place of its own when
     given."""
     model.eval()
-    with torch.autocast(next(iter(data.values())).device.type, enabled=False):
+    device = next(v for v in data.values() if isinstance(v, torch.Tensor)).device
+    with torch.autocast(device.type, enabled=False):
         if params is None:
             return model(data)
         return torch.func.functional_call(model, params, (data,))

@@ -32,7 +32,14 @@ both edges of the window, into ``profile_dir`` (default
 ``<output_dir>/profile``; one ``host_{rank:02d}`` directory per process
 under data parallelism), as one Chrome trace file per process.
 
-Not ported yet: meshes and spatial partitioning (ROADMAP A13).
+``mesh`` (``parallel.make_mesh``, this process's devices) trains over a
+device mesh: the state lives on its first device, the backbone's spatial
+floor is set (``parallel.with_spatial_floor``), and the train and eval steps
+cut each batch's views over the mesh (``make_train_step(mesh=)``), height
+strips over a spatial group with halo rows between them. Under torchrun each
+process drives its own spatial group, and data parallelism runs over the
+processes as above. Checkpoints are the same files, with the reference's
+key names. The V-view model takes no spatial mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from rot_mvgaze_tpu_torch.evaluate import (
     format_breakdown,
 )
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
+from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, spatial_size, with_spatial_floor
 from rot_mvgaze_tpu_torch.train.checkpoints import (
     CHECKPOINT_GLOB,
     RESUME_GLOBS,
@@ -136,9 +144,11 @@ class Trainer:
         test_loader: Optional[Any] = None,
         device: Any = "cuda",
         init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.first_device)
         self.metrics = metrics
         self.train_loader = train_loader
         self.test_loader = test_loader
@@ -150,6 +160,15 @@ class Trainer:
         self.rank, self.world = parallel.process_index(), parallel.process_count()
         self.group = parallel.device_group()
         self._is_primary = self.rank == 0
+        if mesh is not None:
+            if self.num_views > 2 and spatial_size(mesh) > 1:
+                raise ValueError("--spatial_partition is not supported with --num_views > 2")
+            if self.num_views > 2 and dp_size(mesh) > 1:
+                raise ValueError("the V-view model trains data-parallel over processes (torchrun), "
+                                 "not over a mesh's data axis in one process")
+            # the backbone gathers its strips once the maps get too small to
+            # split; raises for a model without the floor
+            model = with_spatial_floor(model, mesh)
 
         # ---- weights ----
         ckpt_resume = getattr(config, "ckpt_resume", None)
@@ -311,6 +330,10 @@ class Trainer:
                   "at its initial statistics (mean 0, var 1); it is meant for warm starts",
                   flush=True)
         grad_accum = int(getattr(config, "grad_accum", 1) or 1)
+        if dp_size(mesh) > 1 and train_loader is not None \
+                and train_loader.batch_size % (grad_accum * dp_size(mesh)):
+            raise ValueError(f"batch_size {train_loader.batch_size} does not split into {grad_accum} "
+                             f"micro-batch(es) over the mesh's {dp_size(mesh)} data replicas")
         if grad_accum > 1 and train_loader is not None:
             if train_loader.batch_size % grad_accum:
                 raise ValueError(f"batch_size {train_loader.batch_size} not divisible by "
@@ -332,9 +355,9 @@ class Trainer:
             self._eval_keys = MULTIVIEW_EVAL_KEYS
         else:
             self._train_step = make_train_step(self.model, metrics, self.optimizer,
-                                               grad_accum=grad_accum, group=self.group,
+                                               grad_accum=grad_accum, group=self.group, mesh=mesh,
                                                **step_options)
-            self._eval_step = make_eval_step(self.model, self.image_size)
+            self._eval_step = make_eval_step(self.model, self.image_size, mesh=mesh)
             self._eval_keys = EVAL_KEYS
         self._preempted = False
 

@@ -4,7 +4,8 @@
         python tests/_torch_dp_worker.py SCENARIO OUT_DIR [ARG]
 
 joins the ``gloo`` group through ``rot_mvgaze_tpu_torch.parallel.initialize``,
-runs SCENARIO on its shard and saves what it saw to
+runs SCENARIO on its shard (``spatial_steps``: each rank on a ``(data 1,
+spatial 2)`` CPU mesh) and saves what it saw to
 ``OUT_DIR/SCENARIO_rank{r}.pt``. It imports the port alone (no JAX). The
 one-process reference at the concatenated batch runs the same functions
 (``op_case`` in the test; ``step_case`` on rank 0, which saves the
@@ -98,11 +99,12 @@ def step_batch(world):
     }
 
 
-def step_case(name, batch, group=None, n_steps=2):
+def step_case(name, batch, group=None, n_steps=2, mesh=None):
     """``n_steps`` float32 updates of R18 x 1 from seed 0 with augmentation
     on (draws folded by the step from one seed) through make_train_step;
     returns each step's loss and error, the first update's gradients (after
-    the average over ranks) and the state after the updates."""
+    the average over ranks) and the state after the updates. ``mesh``: the
+    process's device mesh (its views in height strips)."""
     from rot_mvgaze_tpu_torch.losses import IterationLoss, StereoL1Loss
     from rot_mvgaze_tpu_torch.models import FeatRotationSymm
     from rot_mvgaze_tpu_torch.train import cyclic_triangular2, make_optimizer, make_train_step
@@ -110,13 +112,14 @@ def step_case(name, batch, group=None, n_steps=2):
     flags, grad_accum = STEP_CASES[name]
     torch.manual_seed(0)
     model = FeatRotationSymm(backbone_depth=18, num_iter=1, **flags).to(memory_format=torch.channels_last)
+    parallel.with_spatial_floor(model, mesh)
     parallel.set_batchnorm_group(model, group)
     metrics = IterationLoss(StereoL1Loss(rel_weight=0.01, reference_decay=1.0), iter_decay=0.5)
     step = make_train_step(
         model, metrics, make_optimizer(model.parameters()), image_size=STEP_SIZE,
         # tests/test_torch_train.py's trajectory schedule: lr 1e-6, then 3.4e-5
         schedule=cyclic_triangular2(base_lr=1e-6, max_lr=1e-4, step_size_up=3, step_size_down=3),
-        grad_accum=grad_accum, fold_key_by_step=True, group=group,
+        grad_accum=grad_accum, fold_key_by_step=True, group=group, mesh=mesh,
     )
     generator = torch.Generator().manual_seed(7)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -181,6 +184,28 @@ def run_steps(rank, world, group):
     return out
 
 
+# --- train steps over ranks, each on a (data 1, spatial 2) CPU mesh --------
+
+SPATIAL_CASES = ("default", "subsample", "grad_accum_remat")
+
+
+def run_spatial_steps(rank, world, group):
+    """run_steps' comparison with each rank's views in two height strips
+    (the BN statistics' sums added over the strips, then over the ranks),
+    against one process unsharded on the concatenated batch."""
+    batch = step_batch(world)
+    rows = slice(rank * STEP_PAIRS, (rank + 1) * STEP_PAIRS)
+    local = {k: v[rows] for k, v in batch.items()}
+    mesh = parallel.make_mesh(["cpu"] * 2, spatial=2)
+    out = {}
+    for name in SPATIAL_CASES:
+        got = step_case(name, local, group, mesh=mesh)
+        digests = parallel.all_gather_object(state_digest(got["state"]))
+        if rank == 0:
+            out[name] = {**compare_step(got, step_case(name, batch)), "ranks_equal": len(set(digests)) == 1}
+    return out
+
+
 # --- the Trainer through the command line ---------------------------------
 
 
@@ -230,6 +255,8 @@ def main():
         result = run_ops(rank, world, group)
     elif scenario == "steps":
         result = run_steps(rank, world, group)
+    elif scenario == "spatial_steps":
+        result = run_spatial_steps(rank, world, group)
     elif scenario == "trainer":
         result = run_trainer(rank, world, group, sys.argv[3])
     else:

@@ -796,3 +796,103 @@ def test_resize_on_the_card_equals_the_cpu(cuda, h, w):
     x = torch.from_numpy(np.random.default_rng(h).random((4, h, w, 3), dtype=np.float32))
     got = resize_bilinear(x.to(cuda), 224).cpu()
     torch.testing.assert_close(got, resize_bilinear(x, 224), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# meshes on the card: height strips through the BN kernels, mesh serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strips", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bn_over_strips_matches_float64_plain(cuda, strips, dtype):
+    """fused_batchnorm_act_blocks over height strips on the card (a logical
+    mesh on one card: every strip's bn_stats sums, one finish, each strip's
+    bn_apply; backward likewise) against the float64 plain versions over the
+    whole map, at test_bn_kernels_match_float64_plain's bars, with the
+    residual and ReLU; 7 rows (layer 4 at 224x224) over 2 strips split 4 +
+    3, over 4 strips 2 + 2 + 2 + 1."""
+    from rot_mvgaze_tpu_torch.parallel import split_sizes
+
+    n, c, h, w = 64, 256, 7, 7
+    g = torch.Generator(cuda).manual_seed(strips)
+    cl = torch.channels_last
+    x = (torch.randn(n, c, h, w, device=cuda, generator=g) * 2 + 0.5).to(dtype).contiguous(memory_format=cl)
+    res = torch.randn(n, c, h, w, device=cuda, generator=g).to(dtype).contiguous(memory_format=cl)
+    gy = torch.randn(n, c, h, w, device=cuda, generator=g).to(dtype).contiguous(memory_format=cl)
+    scale = (torch.rand(c, device=cuda, generator=g) + 0.5).requires_grad_(True)
+    bias = (torch.randn(c, device=cuda, generator=g) * 0.1).requires_grad_(True)
+
+    def cut(t):
+        out, h0 = [], 0
+        for rows in split_sizes(h, strips):
+            out.append(t[:, :, h0:h0 + rows].contiguous(memory_format=cl).requires_grad_(True))
+            h0 += rows
+        return out
+
+    xs, rs = cut(x), cut(res)
+    before = [k.launches for k in batchnorm.KERNELS] + [batchnorm.bn_stats.finish_launches,
+                                                        batchnorm.bn_bwd_reduce.finish_launches]
+    ys, mean, var, count = batchnorm.fused_batchnorm_act_blocks([xs], scale, bias, [rs], 1e-5, True)
+    y = torch.cat(ys[0], dim=2)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    after = [k.launches for k in batchnorm.KERNELS] + [batchnorm.bn_stats.finish_launches,
+                                                       batchnorm.bn_bwd_reduce.finish_launches]
+    assert [a - b for a, b in zip(after, before)] == [strips] * 4 + [1, 1]
+    assert count == n * h * w
+
+    def rows(t):
+        return t.double().permute(0, 2, 3, 1).reshape(-1, c)
+
+    s64, b64 = scale.detach().double(), bias.detach().double()
+    p_mean, p_var, p_rstd, p_a, p_b = batchnorm.bn_stats_reference(rows(x), s64, b64, 1e-5)
+    p_y = batchnorm.bn_apply_reference(rows(x), p_a, p_b, rows(res), True)
+    p_ds, p_db, p_k, p_mg, p_mgx = batchnorm.bn_bwd_reduce_reference(rows(gy), rows(y.detach()), rows(x), p_mean,
+                                                                     p_rstd, s64, True)
+    p_dx, p_dres = batchnorm.bn_bwd_dx_reference(rows(gy), rows(y.detach()), rows(x), p_mean, p_rstd, p_k, p_mg,
+                                                 p_mgx, None, None, True, True)
+    close = lambda a_, b_, tol: torch.testing.assert_close(a_.double(), b_, atol=tol[0], rtol=tol[1])  # noqa: E731
+    f32 = dtype == torch.float32
+    close(mean, p_mean, (1e-5, 1e-5))
+    close(var, p_var, (1e-5, 1e-5))
+    close(rows(y.detach()), p_y, (1e-5, 1e-5) if f32 else (1e-2, 1e-2))
+    close(scale.grad, p_ds, (5e-4, 1e-3))
+    close(bias.grad, p_db, (5e-4, 1e-3))
+    close(rows(torch.cat([t.grad for t in xs], dim=2)), p_dx, (5e-4, 1e-3) if f32 else (1e-2, 1e-2))
+    torch.testing.assert_close(rows(torch.cat([t.grad for t in rs], dim=2)), p_dres, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,spatial", [(2, 1), (1, 2), (2, 2)], ids=["data2", "spatial2", "data2_spatial2"])
+def test_logical_mesh_predictor_matches_one_card(cuda, tmp_path, data, spatial):
+    """R18 (D = V = 512: the fuser's wgmma variant in bf16), 2 iterations,
+    64x64, micro-batch 8, on a logical mesh of cuda:0: float32 within atol
+    2e-4 / rtol 1e-3 of the one-card predictor, bf16 within 0.1 deg mean;
+    2 x 2 wgmma fuser launches per data replica per micro-batch."""
+    from rot_mvgaze_tpu_torch import serving
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    from rot_mvgaze_tpu_torch.parallel import make_mesh
+
+    torch.manual_seed(0)
+    ckpt = str(tmp_path / "m.pth.tar")
+    torch.save(FeatRotationSymm(backbone_depth=18, num_iter=2).state_dict(), ckpt)
+    rng = np.random.default_rng(0)
+    req = (rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8), rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8),
+           rng.uniform(-0.5, 0.5, (16, 2)).astype(np.float32), rng.uniform(-0.5, 0.5, (16, 2)).astype(np.float32))
+    kw = dict(backbone_depth=18, num_iter=2, micro_batch=8, image_size=64)
+    mesh = make_mesh(["cuda:0"] * (data * spatial), spatial=spatial)
+    for dtype in (torch.float32, torch.bfloat16):
+        one = serving.GazePredictor(ckpt, dtype=dtype, **kw).predict(*req)
+        pred = serving.GazePredictor(ckpt, dtype=dtype, mesh=mesh, **kw)
+        before = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+        got = pred.predict(*req)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, one, atol=2e-4, rtol=1e-3)
+        else:
+            after = fusion.rotate_concat_matmul_relu.launches_by_variant
+            assert after["wgmma"] - before["wgmma"] == 2 * 2 * data * 2  # 2 micro-batches
+            assert angular_error_numpy(got.astype(np.float64), one.astype(np.float64)).mean() <= 0.1
