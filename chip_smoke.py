@@ -224,12 +224,27 @@ script exits non-zero and prints no result line:
    again over the real cards, and two updates through the command line's
    build_experiment over two of them, with each card's peak memory. The
    phase's seconds.
-14. the kernels line, the card line, and as the last line
+14. int8 serving under a mesh, R50 x 3, full width, 224x224, micro-batch
+   64, on phase 13's logical meshes of cuda:0, counts set to 0 just before
+   each predict and read just after: GazePredictor(mesh=, int8=True |
+   "static") at (data 2), (1, 2), (2, 2) and (1, 4), bf16 and f32, 100
+   pairs against the one-card int8 predictor on the same micro-batches
+   (f32 at phase 4's bar, bf16 mean delta <= 0.1 deg); static ranges
+   calibrated on the same 64 pairs against the one card's (f32 bit for
+   bit, bf16's largest relative difference recorded, tripwire 5%); per
+   micro-batch 6 fuser launches per data replica (wgmma in bf16), the int8
+   GEMMs predicted in PERF.md (53 per replica on whole maps, one per strip
+   for each conv on strips), no train-mode BN or conv kernel; images/s and
+   p50 of each bf16 int8 predictor beside one card's int8 and the same
+   mesh's bf16; serve.py --dp --spatial_partition 2 --int8_static over HTTP
+   on 127.0.0.1 (the first request calibrates and saves the ranges, the
+   later replies equal direct predicts). The phase's seconds.
+15. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-14, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-15, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -3353,6 +3368,193 @@ def run_mesh_phase(fusion, batchnorm) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: int8 serving under a mesh
+# ---------------------------------------------------------------------------
+
+INT8_MODES = {"dynamic": True, "static": "static"}
+# int8 GEMMs per data replica and micro-batch at 224x224 (the counts PERF.md
+# §6 predicted): one per conv on a whole map, one per strip for each conv
+# that runs on strips; over 4 strips layer 4's 10 convs run on the gathered
+# map (its 7 rows would split 2, 2, 2, 1)
+INT8_GEMMS_PER_REPLICA = {1: R50_CONVS, 2: 2 * R50_CONVS, 4: 4 * (R50_CONVS - 10) + 10}
+
+
+def int8_ranges(pred) -> np.ndarray:
+    return np.array([float(c.act_amax) for _, c in pred._quant_convs])
+
+
+def serve_int8_on_mesh(fusion, batchnorm, pred, req, data: int, sp: int) -> tuple:
+    """One counted predict of ``req`` through an int8 mesh predictor:
+    (pitchyaw, counts with the int8 GEMMs); the fuser must launch 6 times
+    per data replica and micro-batch, of the variant its dtype takes, the
+    int8 GEMM INT8_GEMMS_PER_REPLICA[sp] times per replica and micro-batch,
+    and no train-mode BN or conv kernel."""
+    mb_before = pred.micro_batches_run
+    out, counts, by_variant, gemms = counted(fusion, batchnorm, lambda: pred.predict(*req))
+    counts["int8_gemm"] = gemms
+    micro_batches = pred.micro_batches_run - mb_before
+    variant = "wgmma" if pred.model._lifter._lifter.blocks[0][0].weight.dtype == torch.bfloat16 else "generic"
+    want = {"fusion": 6 * data * micro_batches, "int8_gemm": INT8_GEMMS_PER_REPLICA[sp] * data * micro_batches}
+    if any(counts[k] != v for k, v in want.items()) or by_variant[variant] != want["fusion"]:
+        raise RuntimeError(f"int8 mesh serving launched {counts} ({by_variant}) over {micro_batches} micro-batches "
+                           f"x {data} replicas, expected {want}, the fuser's all {variant}")
+    if any(counts[k] for k in BN_KERNELS) or counts["conv3x3_bn_stats"]:
+        raise RuntimeError(f"int8 mesh serving launched train-mode BN or conv kernels: {counts}")
+    if out.shape != (req[0].shape[0], 2) or not np.all(np.isfinite(out)):
+        raise RuntimeError(f"int8 mesh serving returned {out.shape}, finite: {np.isfinite(out).all()}")
+    return out, counts
+
+
+def run_int8_mesh_phase(fusion, batchnorm) -> dict:
+    """Phase 14: GazePredictor(mesh=, int8=True|"static") at R50 x 3, 224x224,
+    micro-batch 64, on phase 13's logical meshes of cuda:0, bf16 and f32:
+    100 pairs against the one-card int8 predictor on the same micro-batches
+    (f32 at phase 4's bar, bf16 mean delta <= 0.1 deg), static ranges
+    calibrated on the same 64 pairs against the one card's (f32 bit for
+    bit, bf16's largest relative difference recorded), the launches per
+    micro-batch, images/s and p50 of the bf16 int8 predictors beside one
+    card's int8 and the same mesh's bf16; then serve.py --dp
+    --spatial_partition 2 --int8_static over HTTP."""
+    from rot_mvgaze_tpu_torch import serve
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.parallel import make_mesh
+    from rot_mvgaze_tpu_torch.serving import BatchingPredictor, GazePredictor
+
+    t_phase = time.perf_counter()
+    kw = dict(backbone_depth=50, num_iter=3, image_size=224)
+    card = torch.device("cuda", 0)
+    req = requests([100], seed=141)[0]
+    calib = requests([PAIRS], seed=142)[0]
+    timed = requests([PAIRS], seed=143)[0]
+    out, refs = {}, {}
+    launches = {"fusion": 0, "int8_gemm": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "r50_seed0.pth.tar")
+        make_checkpoint(ckpt)
+
+        def one_card(dtype, mode):
+            """The one-card int8 predictor's pitchyaw of ``req`` and static
+            ranges (calibrated on ``calib``) at the mesh's micro-batch (the
+            dynamic scale is the micro-batch's)."""
+            key = (dtype, mode)
+            if key not in refs:
+                pred = GazePredictor(ckpt, micro_batch=PAIRS, dtype=dtype, int8=INT8_MODES[mode], device=card, **kw)
+                if mode == "static":
+                    pred.calibrate(*calib)
+                refs[key] = {"pred": pred.predict(*req), "ranges": int8_ranges(pred) if mode == "static" else None}
+                if dtype == torch.bfloat16:
+                    out[f"one_card_int8_{mode}"] = time_serving(pred, timed, n_iter=5)
+                del pred
+            return refs[key]
+
+        for data, sp in MESH_LAYOUTS:
+            name = f"data{data}_spatial{sp}"
+            mesh = make_mesh([card] * (data * sp), spatial=sp)
+            pred = GazePredictor(ckpt, micro_batch=PAIRS, dtype=torch.bfloat16, mesh=mesh, **kw)
+            rec = {"bf16": time_serving(pred, timed, n_iter=5)}
+            del pred
+            for mode, int8 in INT8_MODES.items():
+                for dtype in (torch.bfloat16, torch.float32):
+                    tag = f"{mode}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                    pred = GazePredictor(ckpt, micro_batch=PAIRS, dtype=dtype, int8=int8, mesh=mesh, **kw)
+                    ref = one_card(dtype, mode)
+                    if mode == "static":
+                        pred.calibrate(*calib)
+                        rel = float(np.max(np.abs(int8_ranges(pred) - ref["ranges"]) / ref["ranges"]))
+                        rec[f"{tag}_ranges_max_rel_diff"] = rel
+                        if not (rel == 0.0 if dtype == torch.float32 else rel <= 0.05):
+                            raise RuntimeError(f"{name} {tag}: static ranges {rel} (relative) from one card's")
+                    got, counts = serve_int8_on_mesh(fusion, batchnorm, pred, req, data, sp)
+                    for k in launches:
+                        launches[k] += counts[k]
+                    rec[f"{tag}_launches"] = {k: counts[k] for k in ("fusion", "int8_gemm")}
+                    if dtype == torch.float32:
+                        rec[f"{tag}_max_abs_diff"] = float(np.abs(got - ref["pred"]).max())
+                        np.testing.assert_allclose(got, ref["pred"], atol=2e-4, rtol=1e-3)
+                    else:
+                        delta = float(angular_error_numpy(got, ref["pred"]).mean())
+                        rec[f"{tag}_delta_deg"] = delta
+                        if not delta <= 0.1:
+                            raise RuntimeError(f"{name} {tag}: {delta} deg from the one-card int8 predictor")
+                        rec[f"{tag}_serve"] = time_serving(pred, timed, n_iter=5)
+                    del pred
+            out[name] = rec
+            log(f"int8 mesh serving {name}: " + ", ".join(
+                f"{mode}: bf16 delta {rec[f'{mode}_bf16_delta_deg']:.3e} deg, f32 max |diff| "
+                f"{rec[f'{mode}_f32_max_abs_diff']:.3e}, {rec[f'{mode}_bf16_serve']['serve_imgs_per_s']:.1f} images/s "
+                f"p50 {rec[f'{mode}_bf16_serve']['serve_p50_ms']:.2f} ms, launches {rec[f'{mode}_bf16_launches']}"
+                for mode in INT8_MODES)
+                + f"; static ranges bf16 {rec['static_bf16_ranges_max_rel_diff']:.3e}, f32 "
+                f"{rec['static_f32_ranges_max_rel_diff']:.3e} (relative); this mesh's bf16 "
+                f"{rec['bf16']['serve_imgs_per_s']:.1f} images/s, one card's int8 "
+                f"{out['one_card_int8_dynamic']['serve_imgs_per_s']:.1f} / "
+                f"{out['one_card_int8_static']['serve_imgs_per_s']:.1f}")
+            torch.cuda.empty_cache()
+
+        # serve.py --dp --spatial_partition 2 --int8_static over HTTP on
+        # 127.0.0.1: the first request calibrates (and saves the ranges),
+        # the later replies equal direct predicts
+        calibration = os.path.join(tmp, "ranges.msgpack")
+        listed = ",".join(["cuda:0"] * 4)
+        args = serve.get_parser().parse_args(["--ckpt", ckpt, "--dp", "--spatial_partition", "2", "--int8_static",
+                                              "--calibration", calibration, "--device", listed,
+                                              "--host", "127.0.0.1", "--port", "0"])
+        if serve.refused(args) or not serve.serves_on_a_mesh(args):
+            raise RuntimeError(f"serve.py refused {listed} --int8_static: {serve.refused(args)}")
+        pred = serve.build_predictor(args)
+        pred.warmup()
+        batching = BatchingPredictor(pred, max_delay_ms=5.0)
+        stats = {"requests": 0, "samples": 0, "time": 0.0}
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(batching, stats))
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        reqs = requests([PAIRS, 1, 17, 100], seed=144)
+        try:
+            post_predict(httpd.server_address[1], pred.request_fields, reqs[0])  # calibrates
+            if not (pred._calibrated and os.path.exists(calibration)):
+                raise RuntimeError("serve.py --int8_static: the first request calibrated nothing")
+            replies, counts = serve_int8_on_mesh_http(fusion, batchnorm, pred, httpd, reqs[1:])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=30)
+            batching.close()
+        for r, reply in zip(reqs[1:], replies):
+            np.testing.assert_allclose(reply, pred.predict(*r), atol=1e-3, rtol=0)
+        for k in launches:
+            launches[k] += counts[k]
+        out["serve_py_http"] = {"devices": listed, "requests": stats["requests"], **counts}
+        log(f"serve.py --dp --spatial_partition 2 --int8_static --device {listed}: {stats['requests']} HTTP "
+            f"requests, the first calibrating; then {counts}; replies equal direct predicts")
+        del pred
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"int8 mesh phase: {out['seconds']:.1f} s")
+    return {"numbers": out, "launches": launches}
+
+
+def serve_int8_on_mesh_http(fusion, batchnorm, pred, httpd, reqs) -> tuple:
+    """``reqs`` posted in turn to ``httpd`` (in front of ``pred``, a frozen
+    static-int8 predictor on (data 2, spatial 2)): the replies and the
+    counts, 6 fuser launches and 2 x 106 int8 GEMMs per micro-batch."""
+    from rot_mvgaze_tpu_torch.ops import quant
+
+    dp, sp = len(pred.mesh.grid), len(pred.mesh.grid[0])
+    mb_before = pred.micro_batches_run
+    reset_mesh_counts(fusion, batchnorm)
+    quant.int8_matmul.launches = 0
+    replies = [post_predict(httpd.server_address[1], pred.request_fields, r) for r in reqs]
+    torch.cuda.synchronize()
+    micro_batches = pred.micro_batches_run - mb_before
+    counts = {"micro_batches": micro_batches, "fusion": fusion.rotate_concat_matmul_relu.launches,
+              "int8_gemm": quant.int8_matmul.launches}
+    want = {"fusion": 6 * dp * micro_batches, "int8_gemm": INT8_GEMMS_PER_REPLICA[sp] * dp * micro_batches}
+    if any(counts[k] != v for k, v in want.items()) or any(getattr(batchnorm, k).launches for k in BN_KERNELS):
+        raise RuntimeError(f"serve.py int8 over the mesh launched {counts}, expected {want}")
+    return replies, counts
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -3542,6 +3744,8 @@ def main(argv=None) -> int:
     options = run_options_phase(fusion, batchnorm, trained["bn_shapes"])
     torch.cuda.empty_cache()
     mesh = run_mesh_phase(fusion, batchnorm)
+    torch.cuda.empty_cache()
+    int8_mesh = run_int8_mesh_phase(fusion, batchnorm)
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -3552,6 +3756,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving_surface": surface["numbers"], **tag}), flush=True)
     print(json.dumps({"options": options["numbers"], **tag}), flush=True)
     print(json.dumps({"mesh_spatial": mesh["numbers"], **tag}), flush=True)
+    print(json.dumps({"int8_mesh": int8_mesh["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -3598,11 +3803,17 @@ def main(argv=None) -> int:
          "MiB, the same update without --remat"),
         ("options_phase_seconds", options["numbers"]["seconds"], "s"),
         ("mesh_phase_seconds", mesh["numbers"]["seconds"], "s"),
+        ("int8_mesh_phase_seconds", int8_mesh["numbers"]["seconds"], "s"),
     ] + [
         (f"mesh_serve_{k}_{name}", rec[f"bf16_serve_{k}"], unit)
         for name, rec in mesh["numbers"]["logical"]["serving"].items() if name.startswith("data")
         for k, unit in (("imgs_per_s", "images/s at micro-batch 63/64, R50 x 3, bf16, logical mesh on one card, "
                                        "host clock"), ("p50_ms", "ms per 64-pair request"))
+    ] + [
+        (f"int8_mesh_serve_{k}_{mode}_{name}", rec[f"{mode}_bf16_serve"][f"serve_{k}"], unit)
+        for name, rec in int8_mesh["numbers"].items() if name.startswith("data") for mode in INT8_MODES
+        for k, unit in (("imgs_per_s", "images/s at micro-batch 64, R50 x 3, bf16, int8, logical mesh on one "
+                                       "card, host clock"), ("p50_ms", "ms per 64-pair request"))
     ] + [
         (f"mesh_{name}_update_ms", rec["update_ms"], "ms per bf16 update of 64 pairs on a logical mesh, host clock "
          f"(unsharded: {rec['unsharded_update_ms']:.1f} ms)")
@@ -3625,16 +3836,18 @@ def main(argv=None) -> int:
     dp_ranks = {k: sum(r[k] for per_dtype in options["dp_launches"] for r in per_dtype)
                 for k in list(PER_STEP) + ["bn_stats_finish", "bn_bwd_finish"]}
     mesh_fusion = mesh["serving_launches"] + mesh["launches"].get("fusion", 0)
+    int8_mesh_fusion = int8_mesh["launches"]["fusion"]
     kernels = [{
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
                     + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"]
-                    + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion,
+                    + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion + int8_mesh_fusion,
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
                              "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"],
                              "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"],
-                             "mesh_spatial": mesh_fusion},
+                             "mesh_spatial": mesh_fusion, "int8_mesh": int8_mesh_fusion},
+        "int8_gemm_launches_int8_mesh": int8_mesh["launches"]["int8_gemm"],
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
                                 + surface["by_variant"][k] for k in fusion.VARIANTS},

@@ -1,18 +1,17 @@
 """ImageNet warm start of the backbone (port of ``load_pretrained_backbone``
-in ``rot_mvgaze_tpu/compat/torch_convert.py`` and of the cache lookup in
-``rot_mvgaze_tpu/compat/download.py``).
+in ``rot_mvgaze_tpu/compat/torch_convert.py`` and of
+``resolve_pretrained_backbone`` in ``rot_mvgaze_tpu/compat/download.py``).
 
 A torchvision ResNet state dict has the port backbone's own key names
 (``conv1``, ``bn1``, ``layer{L}.{B}.conv{k}``, ``downsample.{0,1}``), so it
-loads into ``model._feat_extractor[0]`` as it is. The port has no network
-code: ``auto`` takes the file only from the JAX package's download cache,
-checked against the sha256 prefix in its torchvision name, and otherwise
-says where to fetch it.
+loads into ``model._feat_extractor[0]`` as it is. ``--pretrained_backbone
+auto`` fetches the file into the cache both packages share, checked
+against the sha256 prefix in its torchvision name
+(``compat/download.py``), or takes it from there.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
 from typing import Any
 
@@ -32,45 +31,20 @@ MODEL_URLS = {
 }
 
 
-def cache_dir() -> str:
-    """The JAX package's download cache, ``~/.cache/rot_mvgaze_tpu/pretrained``."""
-    return os.path.join(os.path.expanduser("~"), ".cache", "rot_mvgaze_tpu", "pretrained")
-
-
-def _sha256(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    return h.hexdigest()
-
-
 def resolve_pretrained(value: str, arch: Any) -> str:
     """The file ``--pretrained_backbone value`` names: a path as it is
     (``FileNotFoundError`` if missing), or for ``auto``/``download`` the
-    cached torchvision file of ``arch`` (an int depth or a variant name)
-    whose sha256 starts with the prefix in its name. With no such file it
-    raises ``RuntimeError`` naming the address to fetch it from on a
-    machine with network access."""
-    if value.lower() not in ("auto", "download"):
-        if not os.path.exists(value):
-            raise FileNotFoundError(f"--pretrained_backbone {value} does not exist")
-        return value
-    name = f"resnet{arch}" if isinstance(arch, int) else str(arch)
-    if name not in MODEL_URLS:
-        raise KeyError(f"unknown backbone {arch!r}; known: {sorted(MODEL_URLS)}")
-    url = MODEL_URLS[name]
-    fname = url.rsplit("/", 1)[-1]
-    dest = os.path.join(cache_dir(), fname)
-    expected = fname.rsplit("-", 1)[-1].split(".")[0]
-    if os.path.exists(dest) and _sha256(dest).startswith(expected):
-        return dest
-    state = "fails its sha256 check" if os.path.exists(dest) else "is not cached"
-    raise RuntimeError(
-        f"pretrained weights for {name} ({url}) {state} in {cache_dir()}, and this port makes no "
-        f"network calls. This environment appears to have no network egress: download the file "
-        f"on a connected machine and pass its path via --pretrained_backbone /path/to/{fname}."
-    )
+    torchvision file of ``arch`` (an int depth or a variant name) through
+    ``compat.download.download_pretrained``: the cached copy, or a fresh
+    download into the cache."""
+    if value.lower() in ("auto", "download"):
+        from rot_mvgaze_tpu_torch.compat.download import download_pretrained
+
+        return download_pretrained(arch)
+    if not os.path.exists(value):
+        raise FileNotFoundError(f"--pretrained_backbone {value} does not exist (pass 'auto' to download "
+                                f"the ImageNet weights)")
+    return value
 
 
 def load_pretrained_backbone(model: nn.Module, path: str) -> nn.Module:

@@ -19,7 +19,9 @@ train-mode BatchNorm statistics merge across views (the V-view counterpart
 of ``fuse_views``). The fusers are called with ``rot=None`` (the partners
 arrive rotated), as in the JAX package, so they are ``F.linear`` MLPs.
 
-Input  : ``{"imgs": (B,V,H,W,C), "rots": (B,V,3,3), ...}``
+Input  : ``{"imgs": (B,V,H,W,C), "rots": (B,V,3,3), ...}``, or in place of
+``imgs`` the pooled backbone features ``BACKBONE_FEATURES`` (B·V, D), taken
+elsewhere (``FeatRotationSymm``'s docstring).
 Output : input ∪ ``{num_iter, num_views, img_feats (B,V,D),
           initial_rot_feats (B,V,3,K),
           iter_{i}: {feats (B,V,3,K), pred_gazes (B,V,2)},
@@ -35,7 +37,7 @@ from torch import nn
 
 from rot_mvgaze_tpu_torch.models.blocks import Mlp
 from rot_mvgaze_tpu_torch.models.resnet import BACKBONES
-from rot_mvgaze_tpu_torch.models.rot_mv import NUM_FEAT_VEC, Feat3dLifter, ImageFeatFuser
+from rot_mvgaze_tpu_torch.models.rot_mv import BACKBONE_FEATURES, NUM_FEAT_VEC, Feat3dLifter, ImageFeatFuser
 
 
 class FeatRotationMultiView(nn.Module):
@@ -79,15 +81,17 @@ class FeatRotationMultiView(nn.Module):
             self._gaze_estimators = nn.ModuleList(make_head() for _ in range(num_iter))
 
     def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
-        imgs = data["imgs"]
-        b, v = imgs.shape[0], imgs.shape[1]
+        rots = data["rots"].float()
+        b, v = rots.shape[0], rots.shape[1]
         if v < 2:
             raise ValueError(f"need at least 2 views, got V={v}")
         k = self.num_feat_vec
-        img_feats_flat = self._feat_extractor(imgs.reshape((b * v,) + tuple(imgs.shape[2:])))
+        img_feats_flat = data.get(BACKBONE_FEATURES)
+        if img_feats_flat is None:
+            imgs = data["imgs"]
+            img_feats_flat = self._feat_extractor(imgs.reshape((b * v,) + tuple(imgs.shape[2:])))
         rot_feats_flat = self._lifter(img_feats_flat)  # (B*V, 3, K)
 
-        rots = data["rots"].float()
         with torch.autocast(rots.device.type, enabled=False):
             # rel[b, v, w] = R_v R_w^T takes view w's feature into view v's frame
             rel = torch.einsum("bvij,bwkj->bvwik", rots, rots)

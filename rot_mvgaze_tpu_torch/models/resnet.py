@@ -26,7 +26,9 @@ max-pool run on the strips with halo rows (:class:`Conv2d`,
 strips are gathered onto their group's first device before a stage whose
 output would leave fewer than 2 rows in a strip (at the stem and at each
 stage, as the JAX backbone's floor), and the pool returns ``(B, C)`` on the
-mesh's first device.
+mesh's first device. Blocks of one strip each (data replicas only) need no
+floor. Under ``int8`` the convs are :class:`QuantConv2d`, which take blocks
+with one activation scale over all of them.
 """
 
 from __future__ import annotations
@@ -49,8 +51,20 @@ INT8_MODES = (False, True, "static")
 UNCALIBRATED_AMAX = 8.0
 
 
-class QuantConv2d(nn.Conv2d):
-    """``nn.Conv2d`` (the same parameters and state-dict keys) whose eval
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state-dict keys) that also
+    takes height strips (``parallel.spatial.Sharded``): the strip conv with
+    halo rows, ``parallel.spatial.conv2d``."""
+
+    def forward(self, x: Any) -> Any:
+        if isinstance(x, Sharded):
+            return spatial.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                                  self.groups, owner=self)
+        return super().forward(x)
+
+
+class QuantConv2d(Conv2d):
+    """:class:`Conv2d` (the same parameters and state-dict keys) whose eval
     forward runs :func:`rot_mvgaze_tpu_torch.ops.quant.int8_conv`: weights
     per output channel, int32 accumulation, out in the input's dtype. Train
     mode is the float conv.
@@ -61,7 +75,14 @@ class QuantConv2d(nn.Conv2d):
     the range and quantize dynamically; otherwise the scale is
     ``act_amax / 127``, or ``8 / 127`` while ``act_amax`` is 0. The
     quantized weight is cached per weight version and device; a traced
-    call (``torch.export``) quantizes in the graph."""
+    call (``torch.export``) quantizes in the graph.
+
+    Blocks over a mesh (``parallel.spatial.Sharded``: data replicas, each
+    in height strips) share one activation scale, the abs-max over every
+    block (or the calibrated range), which is the value the unsharded conv
+    takes over the same batch, since a max is exact. Each block is
+    quantized with it, the halo rows are fetched as int8, and each output
+    strip's int32 sums are rescaled on its device."""
 
     def __init__(self, *args: Any, int8: Any = True, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)
@@ -92,19 +113,51 @@ class QuantConv2d(nn.Conv2d):
                 self._wq = (key, quant.quantize_conv_weight(w))
         return self._wq[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _frozen_scale(self) -> torch.Tensor:
+        amax = torch.where(self.act_amax > 0, self.act_amax, UNCALIBRATED_AMAX)
+        return amax / 127.0
+
+    def _record(self, amax: torch.Tensor) -> None:
+        with torch.no_grad():
+            torch.maximum(self.act_amax, amax, out=self.act_amax)
+
+    def forward(self, x: Any) -> Any:
         if self.training:
             return super().forward(x)
+        if isinstance(x, Sharded):
+            return self._forward_blocks(x)
         act_scale = None
         if self.int8 == "static":
             if self.calibrating:
-                with torch.no_grad():
-                    torch.maximum(self.act_amax, x.detach().float().abs().amax(), out=self.act_amax)
+                self._record(x.detach().float().abs().amax())
             else:
-                amax = torch.where(self.act_amax > 0, self.act_amax, UNCALIBRATED_AMAX)
-                act_scale = amax / 127.0
+                act_scale = self._frozen_scale()
         return quant.int8_conv(x, self.weight, self.stride, self.padding, self.groups,
                                act_scale=act_scale, quantized_weight=self._quantized_weight())
+
+    def _forward_blocks(self, x: Sharded) -> Sharded:
+        """The int8 conv over blocks with one activation scale (the class
+        docstring): reduced on the first block's device, where the module
+        lives, and copied to each block's."""
+        if self.int8 == "static" and not self.calibrating:
+            scale = self._frozen_scale()
+        else:
+            amax = spatial.abs_max(x)
+            if self.int8 == "static":
+                self._record(amax.to(self.act_amax.device))
+            scale = quant.scale_from_amax(amax)
+        w8, sw = self._quantized_weight()
+        rescale = scale * sw.reshape(1, -1, 1, 1)
+        on_device: dict = {}
+
+        def at(dev: torch.device) -> tuple:
+            if dev not in on_device:
+                on_device[dev] = (scale.to(dev), rescale.to(dev))
+            return on_device[dev]
+
+        x8 = x.map(lambda t: quant.quantize_with_scale(t, at(t.device)[0]))
+        y = spatial.int8_conv_accumulate(x8, w8, self.stride, self.padding, self.groups, owner=self)
+        return y.map(lambda t: (t.float() * at(t.device)[1]).to(x.dtype))
 
 
 @contextlib.contextmanager
@@ -119,18 +172,6 @@ def calibrating(model: nn.Module) -> Iterator[None]:
     finally:
         for m in convs:
             m.calibrating = False
-
-
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` (the same parameters and state-dict keys) that also
-    takes height strips (``parallel.spatial.Sharded``): the strip conv with
-    halo rows, ``parallel.spatial.conv2d``."""
-
-    def forward(self, x: Any) -> Any:
-        if isinstance(x, Sharded):
-            return spatial.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
-                                  self.groups, owner=self)
-        return super().forward(x)
 
 
 class MaxPool2d(nn.MaxPool2d):
@@ -287,7 +328,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: Any) -> torch.Tensor:
         sharded = isinstance(x, Sharded)
-        if sharded and self.spatial_unshard is None:
+        if sharded and x.strips > 1 and self.spatial_unshard is None:
             raise ValueError("height strips need the backbone's spatial floor: "
                              "parallel.with_spatial_floor(model, mesh)")
 

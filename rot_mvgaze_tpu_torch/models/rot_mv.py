@@ -39,6 +39,8 @@ from rot_mvgaze_tpu_torch.ops import fusion
 from rot_mvgaze_tpu_torch.parallel import spatial
 
 NUM_FEAT_VEC = 512
+# the input key of pooled backbone features taken outside the model's forward
+BACKBONE_FEATURES = "backbone_features"
 
 
 class Feat3dLifter(nn.Module):
@@ -160,6 +162,10 @@ class FeatRotationSymm(nn.Module):
     the statistics merge across views and each running statistic updates
     once. In eval both views always run as one batch (BN then uses running
     statistics, so this changes nothing but the batch size).
+    ``data[BACKBONE_FEATURES]``, where given, holds both views' pooled
+    backbone features taken elsewhere (view 0's rows, then view 1's; the
+    int8 mesh predictor's one pass over every replica), and the backbone
+    does not run.
 
     ``int8_backbone`` (False, True or "static") runs the backbone's convs
     on the int8 path in eval (``models/resnet.py::QuantConv2d``); the state
@@ -254,7 +260,6 @@ class FeatRotationSymm(nn.Module):
         self._feat_extractor[0].spatial_unshard = value
 
     def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
-        img_0, img_1 = data["img_0"], data["img_1"]
         rot_0 = data["rot_0"].float()
         rot_1 = data["rot_1"].float()
         # the 3x3 composes stay float32 under autocast, as JAX keeps them at
@@ -263,14 +268,16 @@ class FeatRotationSymm(nn.Module):
             rot_10 = rot_0 @ rot_1.transpose(-1, -2)
             rot_01 = rot_1 @ rot_0.transpose(-1, -2)
 
-        n = img_0.shape[0]
-        if self.training and not self.fuse_views:
-            img_feat_0 = self._feat_extractor(img_0)
-            img_feat_1 = self._feat_extractor(img_1)
+        n = rot_0.shape[0]
+        both = data.get(BACKBONE_FEATURES)
+        if both is None and self.training and not self.fuse_views:
+            img_feat_0 = self._feat_extractor(data["img_0"])
+            img_feat_1 = self._feat_extractor(data["img_1"])
             rot_feat_0 = self._lifter(img_feat_0)
             rot_feat_1 = self._lifter(img_feat_1)
         else:
-            both = self._feat_extractor(spatial.cat_batch([img_0, img_1]))
+            if both is None:
+                both = self._feat_extractor(spatial.cat_batch([data["img_0"], data["img_1"]]))
             lifted = self._lifter(both)
             img_feat_0, img_feat_1 = both[:n], both[n:]
             rot_feat_0, rot_feat_1 = lifted[:n], lifted[n:]

@@ -48,8 +48,13 @@ def quantize_symmetric(
         amax = xf.abs().amax()
     else:
         amax = xf.abs().amax(dim=tuple(reduce_dims), keepdim=True)
-    scale = torch.clamp(amax, min=_EPS) / 127.0
+    scale = scale_from_amax(amax)
     return quantize_with_scale(xf, scale), scale
+
+
+def scale_from_amax(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric scale of an abs-max: ``max(amax, eps) / 127``."""
+    return torch.clamp(amax, min=_EPS) / 127.0
 
 
 def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,10 @@ and padding ``p`` reads the input rows ``[o0·s − p, (o1−1)·s − p + k)``,
 fetched by :func:`fetch_rows` from whichever strips hold them (``.to`` the
 output strip's device: the halo copy) and padded past the image's top and
 bottom only (zeros for a convolution, −inf for the max-pool); the width
-padding is the op's own. Autograd carries the halos' gradients back.
+padding is the op's own. Autograd carries the halos' gradients back. The
+int8 convolution (:func:`int8_conv_accumulate`) fetches its halo rows
+already quantized, one byte per element, with the scale of
+:func:`abs_max` over every block.
 
 :func:`floor_check` gathers every group's strips onto its first device
 before a stage whose output would leave fewer than 2 rows in a strip (the
@@ -37,6 +40,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from rot_mvgaze_tpu_torch.ops import quant
 from rot_mvgaze_tpu_torch.parallel.mesh import min_spatial_shard_rows, split_sizes
 
 _CL = torch.channels_last
@@ -207,6 +211,26 @@ def conv2d(x: Sharded, weight: torch.Tensor, bias: Optional[torch.Tensor], strid
     s, p = _square(stride, "stride"), _square(padding, "padding")
     return _windowed(x, k, s, p, 0.0, lambda rows, dev, hp: F.conv2d(
         rows, on(weight, dev, owner), on(bias, dev, owner), (s, s), (hp, p), 1, groups))
+
+
+def abs_max(x: Sharded) -> torch.Tensor:
+    """``max |x|`` over every block of every data replica, float32 on the
+    first block's device: the whole array's abs-max (a max is exact, so the
+    unsharded array gives the same value)."""
+    first = x.rows[0][0].device
+    return torch.stack([t.abs().amax().float().to(first) for t in x.blocks()]).amax()
+
+
+def int8_conv_accumulate(x8: Sharded, w8: torch.Tensor, stride: Any, padding: Any, groups: int = 1,
+                         owner: Any = None) -> Sharded:
+    """``ops.quant.int8_conv_accumulate`` over height strips of int8
+    values: the halo rows fetched as int8, zeros above and below the image
+    (int8 zero is the code of 0.0 at any scale), the width padding the
+    conv's own; int32 blocks out. ``owner``: as in :func:`conv2d`."""
+    k = _square(w8.shape[2:], "kernel")
+    s, p = _square(stride, "stride"), _square(padding, "padding")
+    return _windowed(x8, k, s, p, 0, lambda rows, dev, hp: quant.int8_conv_accumulate(
+        rows, on(w8, dev, owner), (s, s), (hp, p), groups))
 
 
 def max_pool2d(x: Sharded, kernel_size: Any, stride: Any, padding: Any) -> Sharded:

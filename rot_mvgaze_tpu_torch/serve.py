@@ -29,8 +29,10 @@ package's server builds it. The visible devices are every card with
 list given (a device may repeat: ``--device cuda:0,cuda:0`` is a logical
 mesh on one card). With one visible device ``--dp`` serves on it, and
 ``--spatial_partition N > 1`` is refused. N must divide ``--image_size``;
-the V-view server (``--num_views > 2``) and int8 (ROADMAP A13: int8 under a
-mesh) take no mesh. Refusals exit before anything loads.
+the V-view server (``--num_views > 2``) takes data-parallel meshes only.
+``--int8`` and ``--int8_static`` serve on any mesh, with the JAX package's
+scale: one abs-max over the whole micro-batch at every conv, across every
+replica and strip. Refusals exit before anything loads.
 
 A malformed request gets 400, a body over the size cap 413, a failure of
 the server 500.
@@ -186,9 +188,9 @@ def serves_on_a_mesh(args: argparse.Namespace) -> bool:
 def refused(args: argparse.Namespace) -> List[str]:
     """What this server refuses of the parsed flags, before it loads
     anything, in the JAX package's server's words: for V > 2 spatial
-    partitioning and the stereo-only ablations, a spatial partition without
-    more than one visible device or that does not divide the image size;
-    and int8 under a mesh (not ported)."""
+    partitioning and the stereo-only ablations, and a spatial partition
+    without more than one visible device or that does not divide the image
+    size."""
     from rot_mvgaze_tpu_torch.parallel.mesh import visible_devices
 
     bad = []
@@ -206,8 +208,6 @@ def refused(args: argparse.Namespace) -> List[str]:
         bad.append(f"--spatial_partition {sp} needs >1 visible device (have {n_devices})")
     elif sp > 1 and args.image_size % sp:
         bad.append(f"--spatial_partition {sp} must divide --image_size {args.image_size}")
-    if serves_on_a_mesh(args) and (args.int8 or args.int8_static):
-        bad.append("--int8/--int8_static under a mesh (ROADMAP A13: int8 under a mesh)")
     return bad
 
 

@@ -32,8 +32,17 @@ per distinct device, one host thread per replica where the replicas' cards
 differ), and on a 2-D mesh each replica's views are cut into height strips
 over its spatial group (the backbone's floor set, ``image_size`` divisible
 by the spatial axis). ``MultiViewGazePredictor`` takes data-parallel meshes
-only, and int8 under a mesh is not ported (ROADMAP A13), as the JAX
-package's dynamic scale is one abs-max over the global array.
+only, as in the JAX package.
+
+int8 under a mesh keeps the JAX package's scale: one abs-max over the
+whole micro-batch at every conv, a max across every replica's rows and
+every strip. So the replicas' backbones run as one pass over all their
+blocks (``parallel.spatial.Sharded``, one thread), whose every conv reduces
+the blocks' abs-max on the mesh's first device (``QuantConv2d``); then each
+replica's fusers and heads run on its own copy of the model from the
+pooled features (``BACKBONE_FEATURES``), as without int8. Static ranges
+are recorded in that pass, over every block, and every copy holds the same
+ranges.
 """
 
 from __future__ import annotations
@@ -56,9 +65,9 @@ from rot_mvgaze_tpu_torch.compat.convert import conv_entries, load_checkpoint, m
 from rot_mvgaze_tpu_torch.geometry.gaze import rotation_matrix_2d
 from rot_mvgaze_tpu_torch.models.multiview import FeatRotationMultiView
 from rot_mvgaze_tpu_torch.models.resnet import INT8_MODES, calibrating
-from rot_mvgaze_tpu_torch.models.rot_mv import FeatRotationSymm
+from rot_mvgaze_tpu_torch.models.rot_mv import BACKBONE_FEATURES, FeatRotationSymm
 from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, spatial_size, with_spatial_floor
-from rot_mvgaze_tpu_torch.parallel.spatial import shard_images
+from rot_mvgaze_tpu_torch.parallel.spatial import Sharded, shard_images
 from rot_mvgaze_tpu_torch.utils.device import resolve_device
 from rot_mvgaze_tpu_torch.utils.padding import iter_padded_microbatches
 
@@ -169,44 +178,55 @@ def make_serving_forward(
     ``strips``: a spatial group's devices; the preprocessed views are cut
     into height strips over them (the counterpart of JAX's ``pin_images``),
     which the model's backbone needs its floor for
-    (``parallel.with_spatial_floor``)."""
+    (``parallel.with_spatial_floor``). ``features``, where given, are both
+    views' pooled backbone features (view 0's rows, then view 1's), and the
+    images are not read."""
 
     def views(img):
         x = eval_preprocess(img, image_size)
         return x if strips is None or len(strips) < 2 else shard_images(x, [list(strips)])
 
-    def forward(state, img_0, img_1, head_pose_0, head_pose_1):
-        data = {
-            "img_0": views(img_0),
-            "img_1": views(img_1),
-            "rot_0": rotation_matrix_2d(head_pose_0),
-            "rot_1": rotation_matrix_2d(head_pose_1),
-        }
+    def forward(state, img_0, img_1, head_pose_0, head_pose_1, features=None):
+        data = {"rot_0": rotation_matrix_2d(head_pose_0), "rot_1": rotation_matrix_2d(head_pose_1)}
+        if features is None:
+            data.update(img_0=views(img_0), img_1=views(img_1))
+        else:
+            data[BACKBONE_FEATURES] = features
         return _apply(model, state, data)["pred_gaze"].float()
 
     return forward
 
 
-def _multiview_data(imgs: torch.Tensor, head_poses: torch.Tensor, image_size: int) -> Dict[str, torch.Tensor]:
-    """Stacked uint8 views -> normalised float views and SO(3) rotations:
-    all N·V images preprocess as one batch."""
-    b, v = imgs.shape[0], imgs.shape[1]
-    proc = eval_preprocess(imgs.reshape((b * v,) + tuple(imgs.shape[2:])), image_size)
-    return {
-        "imgs": proc.reshape((b, v) + tuple(proc.shape[1:])),
-        "rots": rotation_matrix_2d(head_poses.float()),
-    }
+def _flat_views(imgs: torch.Tensor, image_size: int) -> torch.Tensor:
+    """Stacked (N, V, H, W, 3) uint8 views -> the N·V normalised NHWC float
+    images, sample-major, preprocessed as one batch."""
+    return eval_preprocess(imgs.reshape((-1,) + tuple(imgs.shape[2:])), image_size)
 
 
 def make_multiview_serving_forward(model: nn.Module, image_size: int = 224) -> Callable[..., torch.Tensor]:
     """Pure V-view serving forward: ``(state, imgs (N,V,H,W,3) uint8,
     head_poses (N,V,2)) -> (N, 2)`` float32 pitchyaw (view 0 of the last
-    iteration); ``state`` as in :func:`make_serving_forward`."""
+    iteration); ``state`` and ``features`` as in
+    :func:`make_serving_forward` (``features``: the N·V images',
+    sample-major)."""
 
-    def forward(state, imgs, head_poses):
-        return _apply(model, state, _multiview_data(imgs, head_poses, image_size))["pred_gaze"].float()
+    def forward(state, imgs, head_poses, features=None):
+        data = {"rots": rotation_matrix_2d(head_poses.float())}
+        if features is None:
+            proc = _flat_views(imgs, image_size)
+            data["imgs"] = proc.reshape(tuple(imgs.shape[:2]) + tuple(proc.shape[1:]))
+        else:
+            data[BACKBONE_FEATURES] = features
+        return _apply(model, state, data)["pred_gaze"].float()
 
     return forward
+
+
+def _tensors(device: torch.device, request: Tuple[np.ndarray, ...]) -> Tuple[torch.Tensor, ...]:
+    """A request's arrays on ``device``: pixels (the rank >= 4 fields) stay
+    uint8, every other field goes as float32, whatever its dtype."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.uint8 if a.ndim >= 4 else np.float32)).to(device)
+                 for a in request)
 
 
 class GazePredictor:
@@ -276,6 +296,12 @@ class GazePredictor:
                       ) -> Callable[..., torch.Tensor]:
         return make_serving_forward(model, self.image_size, strips)
 
+    def _backbone_images(self, request: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """A request's images as its backbone takes them, in the order the
+        forward stacks them (``features``: view 0's rows, then view 1's)."""
+        return torch.cat([eval_preprocess(request[0], self.image_size),
+                          eval_preprocess(request[1], self.image_size)])
+
     def _noise_request(self) -> Tuple[np.ndarray, ...]:
         """One throwaway request (N=1) for :meth:`warmup`."""
         rng = np.random.default_rng(0)
@@ -305,11 +331,6 @@ class GazePredictor:
     ) -> None:
         if int8 not in INT8_MODES:
             raise ValueError(f"int8 must be one of {INT8_MODES}, got {int8!r}")
-        if mesh is not None and int8:
-            # JAX's dynamic scale is one abs-max over the global array: under
-            # a mesh, a max across replicas and strips at every conv
-            raise ValueError(f"int8={int8!r} under a mesh is not ported (ROADMAP A13: int8 under a "
-                             f"mesh); serve int8 without a mesh")
         self._int8_static = int8 == "static"
         if calibration_path is not None and not self._int8_static:
             # only the static path reads or writes it; accepting it elsewhere
@@ -331,6 +352,10 @@ class GazePredictor:
         self.mesh = mesh
         self._replicas: List[Tuple[torch.device, Callable[..., torch.Tensor]]] = []
         self._threaded = False
+        # int8 under a mesh: one backbone pass over every replica's blocks
+        # (the module docstring)
+        self._lockstep = mesh is not None and bool(int8)
+        models = {self.device: self.model}
         if mesh is not None:
             self._apply_mesh_model(mesh, image_size)
             # the micro-batch rounds up to a multiple of the data axis (the
@@ -340,7 +365,6 @@ class GazePredictor:
             # one copy of the model per distinct device that runs a
             # replica's heads (its group's first); a strip's other devices
             # take the parameters they need from spatial.on's cache
-            models = {self.device: self.model}
             for group in mesh.grid:
                 if group[0] not in models:
                     models[group[0]] = copy.deepcopy(self.model).to(group[0])
@@ -356,9 +380,12 @@ class GazePredictor:
         self._calib_lock = threading.Lock()
         self._calibration_path = calibration_path
         if self._int8_static:
-            # (JAX calibration path, conv) of every backbone conv
-            self._quant_convs = [(e.jax_path, self.model.get_submodule(e.torch_key))
-                                 for e in conv_entries(model.backbone_depth)]
+            # (JAX calibration path, conv) of every backbone conv, and the
+            # same conv of every other copy of the model
+            entries = conv_entries(model.backbone_depth)
+            self._quant_convs = [(e.jax_path, self.model.get_submodule(e.torch_key)) for e in entries]
+            self._copy_convs = [[m.get_submodule(e.torch_key) for e in entries]
+                                for m in models.values() if m is not self.model]
             if calibration_path is not None and os.path.exists(calibration_path):
                 self.load_calibration(calibration_path)
 
@@ -415,22 +442,25 @@ class GazePredictor:
                     outs.append(self._run(padded)[:rows])
         if force_calib:
             with self._calib_lock:
+                self._share_ranges()
                 self._calibrated = True
         return np.concatenate(outs, axis=0)
 
     def _run(self, request: Tuple[np.ndarray, ...]) -> np.ndarray:
-        """One micro-batch: pixels stay uint8 (the rank >= 4 fields), every
-        other field goes as float32, whatever its incoming dtype. Under a
-        mesh its rows split evenly over the data replicas, each run on its
-        own devices (from one host thread each where they are distinct
-        cards), and the replicas' predictions are concatenated in order."""
+        """One micro-batch (:func:`_tensors`). Under a mesh its rows split
+        evenly over the data replicas, each run on its own devices (from one
+        host thread each where they are distinct cards; under int8 the
+        backbones first, in one pass), and the replicas' predictions are
+        concatenated in order."""
         request = tuple(map(np.asarray, request))
         if self.mesh is None:
-            pred = self._run_on(self.device, self._forward, request)
+            pred = self._run_on(self._forward, _tensors(self.device, request))
         else:
             n = request[0].shape[0] // len(self._replicas)
-            parts = [(device, forward, tuple(a[i * n:(i + 1) * n] for a in request))
+            parts = [(forward, _tensors(device, tuple(a[i * n:(i + 1) * n] for a in request)))
                      for i, (device, forward) in enumerate(self._replicas)]
+            if self._lockstep:
+                parts = self._backbone_pass(parts)
             if self._threaded:
                 with ThreadPoolExecutor(max_workers=len(parts)) as pool:
                     outs = list(pool.map(lambda part: self._run_on(*part), parts))
@@ -443,13 +473,23 @@ class GazePredictor:
 
     @staticmethod
     @torch.inference_mode()
-    def _run_on(device: torch.device, forward: Callable[..., torch.Tensor],
-                request: Tuple[np.ndarray, ...]) -> np.ndarray:
-        tensors = tuple(
-            torch.from_numpy(np.ascontiguousarray(a, np.uint8 if a.ndim >= 4 else np.float32)).to(device)
-            for a in request
-        )
-        return forward(None, *tensors).cpu().numpy()
+    def _run_on(forward: Callable[..., torch.Tensor], tensors: Tuple[torch.Tensor, ...],
+                features: Optional[torch.Tensor] = None) -> np.ndarray:
+        return forward(None, *tensors, features=features).cpu().numpy()
+
+    @torch.inference_mode()
+    def _backbone_pass(self, parts: List[Tuple[Callable[..., torch.Tensor], Tuple[torch.Tensor, ...]]]) -> list:
+        """int8 under a mesh: every replica's backbone in one pass over all
+        their blocks (each replica's images in height strips over its
+        group), so that every conv quantizes with the micro-batch's one
+        scale; returns ``parts`` with each replica's pooled features on its
+        device, for its heads."""
+        images = [self._backbone_images(tensors) for _, tensors in parts]
+        blocks = Sharded([shard_images(x, [group]).rows[0] for x, group in zip(images, self.mesh.grid)], hdim=1)
+        pooled = self.model._feat_extractor(blocks)  # (all replicas' rows, C) on the first device
+        features = torch.split(pooled, [x.shape[0] for x in images])
+        return [(forward, tensors, f.to(group[0]))
+                for (forward, tensors), f, group in zip(parts, features, self.mesh.grid)]
 
     def calibrate(
         self,
@@ -526,9 +566,10 @@ class GazePredictor:
         if set(leaves) != want or any(np.shape(v) != () for v in leaves.values()):
             raise ValueError(f"calibration at {path} does not match this architecture")
         with self._calib_lock:
-            for jax_path, conv in self._quant_convs:
+            for i, (jax_path, conv) in enumerate(self._quant_convs):
                 value = torch.tensor(np.asarray(leaves[jax_path + ("act_amax",)], np.float32))
-                conv.act_amax.copy_(value)
+                for c in [conv] + [convs[i] for convs in self._copy_convs]:
+                    c.act_amax.copy_(value)
             self._calibrated = True
 
     def reset_calibration(self) -> None:
@@ -540,7 +581,18 @@ class GazePredictor:
         with self._calib_lock:
             for _, conv in self._quant_convs:
                 conv.act_amax.zero_()
+            for convs in self._copy_convs:
+                for conv in convs:
+                    conv.act_amax.zero_()
             self._calibrated = False
+
+    def _share_ranges(self) -> None:
+        """After a calibration pass: every other copy of the model takes the
+        first device's ranges (the pass records there: under int8 that
+        copy's backbone runs every replica's blocks)."""
+        for i, (_, conv) in enumerate(self._quant_convs):
+            for convs in self._copy_convs:
+                convs[i].act_amax.copy_(conv.act_amax)
 
 
 class MultiViewGazePredictor(GazePredictor):
@@ -597,6 +649,9 @@ class MultiViewGazePredictor(GazePredictor):
     def _make_forward(self, model: nn.Module, strips: Optional[Sequence[torch.device]] = None
                       ) -> Callable[..., torch.Tensor]:
         return make_multiview_serving_forward(model, self.image_size)
+
+    def _backbone_images(self, request: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        return _flat_views(request[0], self.image_size)
 
     def _noise_request(self) -> Tuple[np.ndarray, ...]:
         rng = np.random.default_rng(0)

@@ -9,6 +9,8 @@ import glob
 import os
 import shutil
 import socket
+import urllib.error
+import urllib.request
 from types import SimpleNamespace
 
 import jax
@@ -487,24 +489,29 @@ def test_pretrained_backbone_refuses_other_layouts(torchvision_file, tmp_path, c
 
 
 def test_pretrained_auto_makes_no_network_call(tmp_path, monkeypatch):
-    """'auto' with an empty cache raises the zero-egress message naming the
-    address, without opening a socket; a cached file failing its checksum
-    is not used."""
+    """'auto' with an empty cache goes through urlopen (patched here to fail
+    as a machine without egress does, and no socket is opened): the
+    zero-egress message naming the address; a cached file failing its
+    checksum is deleted and fetched again, not used."""
     monkeypatch.setenv("HOME", str(tmp_path))
 
     def no_network(*args, **kwargs):
         raise AssertionError("a network call was made")
 
+    def no_egress(url, timeout=60):
+        raise urllib.error.URLError("no route to host")
+
     monkeypatch.setattr(socket, "socket", no_network)
     monkeypatch.setattr(socket, "create_connection", no_network)
+    monkeypatch.setattr(urllib.request, "urlopen", no_egress)
     with pytest.raises(RuntimeError, match="no network egress") as e:
         resolve_pretrained("auto", 50)
-    assert MODEL_URLS["resnet50"] in str(e.value) and "is not cached" in str(e.value)
+    assert MODEL_URLS["resnet50"] in str(e.value)
     cache = tmp_path / ".cache" / "rot_mvgaze_tpu" / "pretrained"
-    cache.mkdir(parents=True)
     (cache / "resnet18-5c106cde.pth").write_bytes(b"not the weights")
-    with pytest.raises(RuntimeError, match="fails its sha256 check"):
+    with pytest.raises(RuntimeError, match="no network egress"):
         resolve_pretrained("download", 18)
+    assert not (cache / "resnet18-5c106cde.pth").exists()
     with pytest.raises(FileNotFoundError):
         resolve_pretrained(str(tmp_path / "absent.pth"), 18)
 

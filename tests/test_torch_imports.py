@@ -60,7 +60,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                    "data.pairing", "data.hdf5", "data.synthetic", "data.pipeline", "evaluate",
                    "train.checkpoints", "train.tb", "utils.helper", "utils.seed",
                    "utils.profiling", "utils.summary", "utils.device", "utils.config",
-                   "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "cli.main",
+                   "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "compat.download", "cli.main",
                    "__main__", "models.multiview", "models.single", "losses.multiview",
                    "data.multiview", "train.multiview_steps", "ops.quant", "export", "export_model",
                    "parallel.distributed", "parallel.mesh", "parallel.spatial"):

@@ -11,8 +11,10 @@ n`` beside JAX's 8 virtual CPU devices (tests/conftest.py).
   rtol 1e-3) and against the port's single-device predictor (atol 1e-5,
   JAX's own bar); micro-batches 6 -> 8 and 3 -> 4; the "not divisible"
   refusal; ``MultiViewGazePredictor`` data-parallel, a spatial mesh
-  refused; int8 under a mesh refused; ``BatchingPredictor`` in front.
-- serve.py's ``--dp`` / ``--spatial_partition`` checks in JAX's words.
+  refused; ``BatchingPredictor`` in front (int8 under a mesh:
+  tests/test_torch_int8_mesh.py).
+- serve.py's ``--dp`` / ``--spatial_partition`` checks in JAX's words, and
+  its HTTP answers over a CPU mesh, float32 and static int8.
 - The command line: ``--spatial_partition 2`` end to end on a logical CPU
   mesh (``--device cpu,cpu``: train, evaluate, checkpoint, rc 0, then test
   mode from the checkpoint), and the refusals in JAX's words beside JAX's.
@@ -221,12 +223,6 @@ def test_spatial_predictor_refuses_an_uneven_split(ckpt):
                       backbone_depth=18, num_iter=1, image_size=30)
 
 
-@pytest.mark.parametrize("int8", [True, "static"], ids=["dynamic", "static"])
-def test_int8_under_a_mesh_is_refused(ckpt, int8):
-    with pytest.raises(ValueError, match="ROADMAP A13: int8 under a mesh"):
-        GazePredictor(ckpt, micro_batch=4, mesh=make_mesh(["cpu"] * 2), int8=int8, **KW)
-
-
 def test_multiview_predictor_is_data_parallel_only(ckpt):
     rng = np.random.default_rng(3)
     imgs = rng.integers(0, 256, (5, 3, SIZE, SIZE, 3), dtype=np.uint8)
@@ -248,7 +244,6 @@ SERVE_REFUSALS = {  # name -> (flags, JAX's words)
                             "--spatial_partition 3 must divide --image_size 224"),
     "v3_spatial": (["--num_views", "3", "--spatial_partition", "2", "--device", "cpu,cpu"],
                    "--num_views 3 with --spatial_partition > 1"),
-    "int8_static_mesh": (["--dp", "--int8_static", "--device", "cpu,cpu"], "under a mesh (ROADMAP A13"),
 }
 
 
@@ -352,39 +347,48 @@ def test_cli_spatial_refusals_in_jaxs_words(corpus, tmp_path, name):
             jax_cli.build_experiment(args)
 
 
-def test_serve_py_answers_over_a_cpu_mesh(ckpt):
-    """serve.py's build_predictor with --dp --spatial_partition 2 over four
-    CPU devices ((data 2, spatial 2)) behind its HTTP handler on 127.0.0.1:
-    the replies equal direct predicts."""
+def test_serve_py_answers_over_a_cpu_mesh(ckpt, tmp_path):
+    """serve.py's build_predictor behind its HTTP handler on 127.0.0.1:
+    with --dp --spatial_partition 2 over four CPU devices ((data 2, spatial
+    2)), and with --dp --int8_static --calibration over two (data 2; the
+    first request calibrates and saves the ranges); the second reply equals
+    a direct predict."""
     import http.client
     import io
     import threading
     from http.server import ThreadingHTTPServer
 
-    args = serve.get_parser().parse_args(["--ckpt", ckpt, "--dp", "--spatial_partition", "2", "--f32",
-                                          "--device", "cpu,cpu,cpu,cpu", "--backbone_depth", "18",
-                                          "--num_iter", "1", "--image_size", str(SIZE), "--micro_batch", "3"])
-    assert serve.refused(args) == []
-    pred = serve.build_predictor(args)
-    assert pred.mesh.shape == {"data": 2, "spatial": 2} and pred.micro_batch == 4
-    batching = BatchingPredictor(pred)
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(batching, {"requests": 0, "samples": 0,
-                                                                                  "time": 0.0}))
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    req = _request(5, seed=9)
-    try:
-        buf = io.BytesIO()
-        np.savez(buf, **dict(zip(pred.request_fields, req)))
-        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
-        conn.request("POST", "/predict", body=buf.getvalue())
-        reply = conn.getresponse()
-        assert reply.status == 200
-        got = np.load(io.BytesIO(reply.read()))["pred_gaze"]
-        conn.close()
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        server.join(timeout=30)
-        batching.close()
-    np.testing.assert_allclose(got, pred.predict(*req), atol=1e-6, rtol=0)
+    common = ["--ckpt", ckpt, "--f32", "--backbone_depth", "18", "--num_iter", "1", "--image_size", str(SIZE),
+              "--micro_batch", "3"]
+    calibration = str(tmp_path / "ranges.msgpack")
+    for flags, shape in ((["--dp", "--spatial_partition", "2", "--device", "cpu,cpu,cpu,cpu"],
+                          {"data": 2, "spatial": 2}),
+                         (["--dp", "--int8_static", "--calibration", calibration, "--device", "cpu,cpu"],
+                          {"data": 2})):
+        args = serve.get_parser().parse_args(common + flags)
+        assert serve.refused(args) == []
+        pred = serve.build_predictor(args)
+        assert pred.mesh.shape == shape and pred.micro_batch == 4
+        batching = BatchingPredictor(pred)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.build_handler(batching, {"requests": 0, "samples": 0,
+                                                                                      "time": 0.0}))
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        req = _request(5, seed=9)
+        try:
+            buf = io.BytesIO()
+            np.savez(buf, **dict(zip(pred.request_fields, req)))
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
+            for _ in range(2):  # static int8: the first request calibrates, the second is served frozen
+                conn.request("POST", "/predict", body=buf.getvalue())
+                reply = conn.getresponse()
+                assert reply.status == 200
+                got = np.load(io.BytesIO(reply.read()))["pred_gaze"]
+            conn.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=30)
+            batching.close()
+        np.testing.assert_allclose(got, pred.predict(*req), atol=1e-6, rtol=0)
+    assert pred._calibrated and os.path.exists(calibration)

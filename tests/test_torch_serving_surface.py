@@ -413,8 +413,10 @@ def test_bf16_is_no_farther_from_jax_f32_than_jax_bf16(tmp_dir):
 @pytest.mark.parametrize(
     "argv, names",
     [
-        # --dp is ported (serving over a mesh), int8 under a mesh is not
-        (["--dp", "--int8", "--device", "cpu,cpu"], "--int8/--int8_static under a mesh (ROADMAP A13"),
+        # --dp is ported (serving over a mesh, int8 too); the V-view server's
+        # mesh is data-parallel only, as JAX's
+        (["--dp", "--num_views", "3", "--spatial_partition", "2", "--device", "cpu,cpu"],
+         "--num_views 3 with --spatial_partition > 1"),
         # ported: with one visible device, JAX's server refuses it too
         (["--spatial_partition", "2", "--device", "cpu"], "--spatial_partition 2 needs >1 visible device"),
         (["--num_views", "3", "--encode_rotmat"], "--num_views 3 with --encode_rotmat"),
