@@ -239,12 +239,26 @@ script exits non-zero and prints no result line:
    mesh's bf16; serve.py --dp --spatial_partition 2 --int8_static over HTTP
    on 127.0.0.1 (the first request calibrates and saves the ranges, the
    later replies equal direct predicts). The phase's seconds.
-15. the kernels line, the card line, and as the last line
+15. the protocol commands. (a) reference_parity's four-protocol table at
+   R50 x 3, 224x224, batch 50, float32, from phase 8's epoch-1 checkpoint
+   saved as a reference .pth.tar, over two synthetic corpora written as
+   packs (2 subjects x 3 frames x 18 cameras each) through the C++ pool:
+   counts set to 0 just before each protocol and read just after, 6 generic
+   fuser launches per eval batch (48 over the table, PERF.md's prediction)
+   and nothing else; each protocol within 1e-3 deg of the same table
+   through the plain versions. (b) pairing_sensitivity at its defaults cut
+   to --epochs 1 --seeds 2 (R18, 64x64) and (c) probe_ema_benefit cut to
+   --epochs 2 (R18 x 1, 32x32), each with its launches predicted (40 of
+   each BN kernel per float32 update; 6 or 2 generic fuser launches per
+   update and per eval batch), its evaluations through the plain versions
+   within 1e-3 deg. The table, the errors, the counts and each command's
+   seconds on a {"reference_parity": ...} line.
+16. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-15, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-16, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -3555,6 +3569,166 @@ def serve_int8_on_mesh_http(fusion, batchnorm, pred, httpd, reqs) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the protocol commands
+# ---------------------------------------------------------------------------
+
+PARITY_MODEL = dict(backbone_depth=50, num_iter=3, share_weights=False, encode_rotmat=False,
+                    share_feature=False, ignore_rotmat=False)
+
+
+def parity_batches(rows: int) -> int:
+    return -(-rows // CLI_BATCH)
+
+
+def run_parity_table(fusion, batchnorm, stereo_ckpt, tmp) -> dict:
+    """Phase 15a: reference_parity's four-protocol table at R50 x 3, 224x224,
+    batch 50, float32, from phase 8's epoch-1 checkpoint saved as a reference
+    .pth.tar, over the rehearsal's two synthetic corpora at 224x224
+    (``reference_parity.rehearsal_corpora``: packs, 2 subjects x 3 frames x
+    18 cameras each), through the packed route and the C++ pool. Each protocol's launches: 6 of the fuser's
+    generic variant per eval batch (PERF.md's prediction), nothing else;
+    each protocol's error within 1e-3 deg of the same table through the
+    plain versions on the card."""
+    from rot_mvgaze_tpu_torch import reference_parity as rp
+    from rot_mvgaze_tpu_torch.compat import checkpoint_state_dict, read_checkpoint
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "epoch_1.pth.tar")
+    torch.save(checkpoint_state_dict(read_checkpoint(stereo_ckpt)), ckpt)
+    roots, subjects = rp.rehearsal_corpora(tmp, 224, seed=300, learnable=True)
+    t_written = time.perf_counter()
+    table, launches, generic = {}, {}, 0
+    for p in rp.PROTOCOLS:
+        _, test_loader, route = rp.protocol_loaders(p, roots, subjects, CLI_BATCH, 0)
+        rows = len(test_loader.dataset)
+        if route != "packed" or test_loader.dataset.pool is None:
+            raise RuntimeError(f"reference_parity {p}: the {route} route served, not the packs' C++ pool")
+
+        def ours(dir_name, p=p):
+            return rp.run_our_eval(p, ckpt, roots, subjects, PARITY_MODEL, 224, CLI_BATCH, 0,
+                                   os.path.join(tmp, dir_name, p), device="cuda")
+
+        err, counts, by_variant, _ = counted(fusion, batchnorm, lambda: ours("kernels"))
+        gen = by_variant["generic"]
+        want = {**dict.fromkeys(PER_STEP, 0), "fusion": 6 * parity_batches(rows)}
+        if counts != want or gen != want["fusion"]:
+            raise RuntimeError(f"reference_parity {p}: {rows} test pairs launched {counts} ({gen} generic), "
+                               f"expected {want}")
+        with plain_kernels():
+            plain = ours("plain")
+        delta = abs(err - plain)
+        log(f"reference_parity {p}: {err:.6f} deg on the kernels, {plain:.6f} through the plain versions "
+            f"(delta {delta:.3e}, bar 1e-3) over {rows} pairs; {gen} generic fuser launches")
+        if not (math.isfinite(err) and delta <= 1e-3):
+            raise RuntimeError(f"reference_parity {p}: {err} deg against {plain} through the plain versions")
+        table[p] = {"ours_deg": err, "plain_deg": plain, "delta_deg": delta, "test_pairs": rows,
+                    "eval_batches": parity_batches(rows), "fusion_generic_launches": gen}
+        generic += gen
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    return {"table": table, "launches": launches, "generic": generic,
+            "corpus_seconds": t_written - t0, "seconds": time.perf_counter() - t0}
+
+
+def run_pairing_experiment(fusion, batchnorm, tmp) -> dict:
+    """Phase 15b: pairing_sensitivity at its defaults (R18 x 3, 64x64, batch
+    18, 2 subjects x 6 frames) cut to --epochs 1 --seeds 2: training (12
+    float32 updates: 40 launches of each BN kernel and 6 of the generic
+    fuser per update) and 3 evaluations (2 seeds and the reference pairing,
+    12 batches each, 6 generic fuser launches per batch); then the same
+    frozen weights through the plain versions, each error within 1e-3 deg."""
+    from rot_mvgaze_tpu_torch import pairing_sensitivity as ps
+
+    t0 = time.perf_counter()
+    args = ps.get_parser().parse_args(["--epochs", "1", "--seeds", "2", "--device", "cuda",
+                                       "--out", os.path.join(tmp, "pairing.json")])
+    (record, model, subjects), counts, by_variant, _ = counted(fusion, batchnorm, lambda: ps.run(args, tmp))
+    gen = by_variant["generic"]
+    updates = record["setup"]["n_samples"] // args.batch_size
+    evals = 3 * -(-record["setup"]["n_samples"] // args.batch_size)
+    want = {**{k: 40 * updates for k in BN_KERNELS}, "fusion": 6 * updates + 6 * evals, "conv3x3_bn_stats": 0}
+    if counts != want or gen != want["fusion"]:
+        raise RuntimeError(f"pairing_sensitivity launched {counts} ({gen} generic), expected {want}")
+    with plain_kernels():
+        seeds, ref = ps.pairing_errors(model, tmp, subjects, range(args.seeds), args.image_size, args.batch_size)
+    got = [*record["per_seed_mean_error_deg"].values(), record["reference_pairing_mean_error_deg"]]
+    delta = max(abs(a - b) for a, b in zip(got, [*seeds.values(), ref]))
+    log(f"pairing_sensitivity (--epochs 1 --seeds 2): spread {record['spread_deg']:.4f} deg, reference "
+        f"pairing {record['reference_pairing_mean_error_deg']:.4f}; through the plain versions within "
+        f"{delta:.3e} deg (bar 1e-3)")
+    if not delta <= 1e-3:
+        raise RuntimeError(f"pairing_sensitivity: kernels {got} against plain {seeds} {ref}")
+    return {"record": record, "plain_max_delta_deg": delta, "launches": counts, "generic": gen,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_ema_probe(fusion, batchnorm, tmp) -> dict:
+    """Phase 15c: probe_ema_benefit at its defaults (R18 x 1, 32x32, batch
+    24, 288 training pairs, 72 held out) cut to --epochs 2: 24 float32
+    updates (40 launches of each BN kernel and 2 of the generic fuser per
+    update), and after each epoch the raw and the averaged weights scored (3
+    batches each, 2 generic fuser launches per batch); then both through the
+    plain versions, each within 1e-3 deg of the last epoch's scores."""
+    from rot_mvgaze_tpu_torch import probe_ema_benefit as pe
+    from rot_mvgaze_tpu_torch.evaluate import evaluate_gaze
+
+    t0 = time.perf_counter()
+    ap = pe.get_parser()
+    args = ap.parse_args(["--epochs", "2", "--device", "cuda"])
+    pe.check_args(ap, args)
+    run, counts, by_variant, _ = counted(fusion, batchnorm, lambda: pe.run(args, tmp))
+    gen = by_variant["generic"]
+    record, state = run["record"], run["state"]
+    updates = args.epochs * (record["train_rows"] // args.batch)
+    evals = args.epochs * 2 * -(-record["eval_rows"] // args.batch)
+    want = {**{k: 40 * updates for k in BN_KERNELS}, "fusion": 2 * updates + 2 * evals, "conv3x3_bn_stats": 0}
+    if counts != want or gen != want["fusion"]:
+        raise RuntimeError(f"probe_ema_benefit launched {counts} ({gen} generic), expected {want}")
+    last = state["history"][-1]
+    with plain_kernels():
+        raw = evaluate_gaze(state["model"], state["eval_loader"], image_size=args.image_size)
+        avg = evaluate_gaze(state["model"], state["eval_loader"], image_size=args.image_size, params=state["ema"])
+    delta = max(abs(raw - last["raw_deg"]), abs(avg - last["ema_deg"]))
+    log(f"probe_ema_benefit (--epochs 2): raw {last['raw_deg']:.4f} deg, EMA {last['ema_deg']:.4f}; through "
+        f"the plain versions within {delta:.3e} deg (bar 1e-3)")
+    if not delta <= 1e-3:
+        raise RuntimeError(f"probe_ema_benefit: kernels {last} against plain raw {raw}, EMA {avg}")
+    return {"record": record, "plain_max_delta_deg": delta, "launches": counts, "generic": gen,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_protocol_phase(fusion, batchnorm, stereo_ckpt) -> dict:
+    """Phase 15: the three protocol commands on the card. Returns the main
+    path's launch counts (the table's, the two experiments' training and
+    evaluation) and the numbers."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = {}
+        for name in ("parity", "pairing", "ema"):
+            work[name] = os.path.join(tmp, name)
+            os.makedirs(work[name])
+        table = run_parity_table(fusion, batchnorm, stereo_ckpt, work["parity"])
+        torch.cuda.empty_cache()
+        pairing = run_pairing_experiment(fusion, batchnorm, work["pairing"])
+        torch.cuda.empty_cache()
+        ema = run_ema_probe(fusion, batchnorm, work["ema"])
+        torch.cuda.empty_cache()
+    launches = {k: table["launches"].get(k, 0) + pairing["launches"][k] + ema["launches"][k]
+                for k in pairing["launches"]}
+    out = {
+        "table": table["table"], "reference_parity_seconds": table["seconds"],
+        "corpus_seconds": table["corpus_seconds"],
+        "pairing_sensitivity": {k: pairing[k] for k in ("record", "plain_max_delta_deg", "launches", "seconds")},
+        "probe_ema_benefit": {k: ema[k] for k in ("record", "plain_max_delta_deg", "launches", "seconds")},
+        "launches": launches, "fusion_generic_launches": table["generic"] + pairing["generic"] + ema["generic"],
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(f"protocol commands phase: table {table['seconds']:.1f} s, pairing {pairing['seconds']:.1f} s, EMA probe "
+        f"{ema['seconds']:.1f} s; {out['seconds']:.1f} s in all")
+    return {"numbers": out, "launches": launches, "generic": out["fusion_generic_launches"]}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -3739,13 +3913,15 @@ def main(argv=None) -> int:
     family = run_family_phase(fusion, batchnorm, bn_timing, trainer["checkpoint"])
     torch.cuda.empty_cache()
     surface = run_serving_surface_phase(fusion, batchnorm, trainer["checkpoint"])
-    keep.cleanup()
     torch.cuda.empty_cache()
     options = run_options_phase(fusion, batchnorm, trained["bn_shapes"])
     torch.cuda.empty_cache()
     mesh = run_mesh_phase(fusion, batchnorm)
     torch.cuda.empty_cache()
     int8_mesh = run_int8_mesh_phase(fusion, batchnorm)
+    torch.cuda.empty_cache()
+    protocols = run_protocol_phase(fusion, batchnorm, trainer["checkpoint"])
+    keep.cleanup()
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -3757,6 +3933,7 @@ def main(argv=None) -> int:
     print(json.dumps({"options": options["numbers"], **tag}), flush=True)
     print(json.dumps({"mesh_spatial": mesh["numbers"], **tag}), flush=True)
     print(json.dumps({"int8_mesh": int8_mesh["numbers"], **tag}), flush=True)
+    print(json.dumps({"reference_parity": protocols["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -3804,6 +3981,8 @@ def main(argv=None) -> int:
         ("options_phase_seconds", options["numbers"]["seconds"], "s"),
         ("mesh_phase_seconds", mesh["numbers"]["seconds"], "s"),
         ("int8_mesh_phase_seconds", int8_mesh["numbers"]["seconds"], "s"),
+        ("protocol_commands_phase_seconds", protocols["numbers"]["seconds"], "s (the four-protocol table at R50, "
+         "pairing_sensitivity and probe_ema_benefit, each with its plain-version check)"),
     ] + [
         (f"mesh_serve_{k}_{name}", rec[f"bf16_serve_{k}"], unit)
         for name, rec in mesh["numbers"]["logical"]["serving"].items() if name.startswith("data")
@@ -3841,16 +4020,19 @@ def main(argv=None) -> int:
         **FUSION,
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
                     + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"]
-                    + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion + int8_mesh_fusion,
+                    + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion + int8_mesh_fusion
+                    + protocols["launches"]["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
                              "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"],
                              "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"],
-                             "mesh_spatial": mesh_fusion, "int8_mesh": int8_mesh_fusion},
+                             "mesh_spatial": mesh_fusion, "int8_mesh": int8_mesh_fusion,
+                             "protocol_commands": protocols["launches"]["fusion"]},
         "int8_gemm_launches_int8_mesh": int8_mesh["launches"]["int8_gemm"],
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
-                                + surface["by_variant"][k] for k in fusion.VARIANTS},
+                                + surface["by_variant"][k] + (protocols["generic"] if k == "generic" else 0)
+                                for k in fusion.VARIANTS},
         "max_abs_err": max_abs_err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3864,11 +4046,12 @@ def main(argv=None) -> int:
         "replaces": replaces,
         "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind]
                     + family["launches"][kind] + options["launches"][kind] + dp_ranks[kind]
-                    + mesh["launches"].get(kind, 0),
+                    + mesh["launches"].get(kind, 0) + protocols["launches"][kind],
         "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
                              "cli": cli["launches"][kind], "model_family": family["launches"][kind],
                              "options": options["launches"][kind], "data_parallel_ranks": dp_ranks[kind],
-                             "mesh_spatial": mesh["launches"].get(kind, 0)},
+                             "mesh_spatial": mesh["launches"].get(kind, 0),
+                             "protocol_commands": protocols["launches"][kind]},
         **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]],
             "finish_launches_mesh_spatial": mesh["launches"].get(DP_FINISH[kind], 0)} if kind in DP_FINISH else {}),
         **{f"{name}_ms": rec["ms"] for name, rec in options["numbers"]["options_bn_ms_per_step"].items()

@@ -17,5 +17,9 @@ data tier (``data``), the step's options, evaluation (``evaluate``),
 checkpoints and ``train.Trainer``; the command line, the model family;
 and the single-card serving and export surface (the antialiased resize,
 every ablation and the V-view model behind ``serving``, int8 serving in
-``ops.quant``, ``torch.export`` artifacts in ``export``).
+``ops.quant``, ``torch.export`` artifacts in ``export``); data parallelism
+and device meshes (``parallel``); and the protocol commands
+(``reference_parity``, the four-protocol table; ``pairing_sensitivity``;
+``probe_ema_benefit``) with the reference's conv block library
+(``models.blocks``) and the profiling helpers (``utils``).
 """

@@ -1,4 +1,5 @@
 from rot_mvgaze_tpu_torch.compat.convert import (
+    blocks_state_dict_from_jax,
     checkpoint_state_dict,
     is_jax_tree,
     load_checkpoint,
@@ -10,6 +11,7 @@ from rot_mvgaze_tpu_torch.compat.convert import (
 from rot_mvgaze_tpu_torch.compat.pretrained import load_pretrained_backbone
 
 __all__ = [
+    "blocks_state_dict_from_jax",
     "checkpoint_state_dict",
     "is_jax_tree",
     "load_checkpoint",

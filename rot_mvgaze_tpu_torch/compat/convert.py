@@ -4,7 +4,8 @@
 The port's module tree carries the reference checkpoints' names, so a
 released ``.pth.tar`` loads with ``load_state_dict(strict=True)`` and needs
 no converter (:func:`load_checkpoint`). :func:`state_dict_from_jax` turns the
-JAX package's variables, as a tree of numpy arrays, into the same state dict:
+JAX package's variables, as a tree of numpy arrays, into the same state dict
+(:func:`blocks_state_dict_from_jax` does so for the conv block library):
 
 - Dense ``kernel (in, out)``         -> Linear ``weight (out, in)``
 - Conv ``kernel (kH, kW, I, O)``     -> Conv2d ``weight (O, I, kH, kW)``
@@ -181,6 +182,34 @@ def state_dict_from_jax(
     feat_dim = 512 * (4 if bottleneck else 1)
     out["_feat_extractor.0.fc.weight"] = np.zeros((1000, feat_dim), np.float32)
     out["_feat_extractor.0.fc.bias"] = np.zeros((1000,), np.float32)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def blocks_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Conv2dNet`` / ``Conv2dTransposeNet`` variables
+    (``conv_{i}`` or ``convt_{i}`` kernels and biases, ``bn_{i}`` scales,
+    biases and batch statistics; numpy leaves) -> the state dict of the
+    port's ``models.blocks`` counterpart: ``blocks.{i}.0`` the layer,
+    ``blocks.{i}.1`` its BatchNorm2d. A Conv kernel ``(kH, kW, I, O)`` is
+    Conv2d's ``(O, I, kH, kW)``; a ConvTranspose kernel in flax's
+    ``transpose_kernel`` layout ``(kH, kW, O, I)`` is ConvTranspose2d's
+    ``(I, O, kH, kW)``: the same axis order either way."""
+    params = variables["params"]
+    batch_stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    for name, leaves in params.items():
+        kind, i = name.rsplit("_", 1)
+        if kind in ("conv", "convt"):
+            out[f"blocks.{i}.0.weight"] = np.asarray(leaves["kernel"]).transpose(3, 2, 0, 1)
+            out[f"blocks.{i}.0.bias"] = np.asarray(leaves["bias"])
+        elif kind == "bn":
+            out[f"blocks.{i}.1.weight"] = np.asarray(leaves["scale"])
+            out[f"blocks.{i}.1.bias"] = np.asarray(leaves["bias"])
+            out[f"blocks.{i}.1.running_mean"] = np.asarray(batch_stats[name]["mean"])
+            out[f"blocks.{i}.1.running_var"] = np.asarray(batch_stats[name]["var"])
+            out[f"blocks.{i}.1.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+        else:
+            raise ValueError(f"not a block of Conv2dNet or Conv2dTransposeNet: {name}")
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 

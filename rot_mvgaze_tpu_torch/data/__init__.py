@@ -7,7 +7,7 @@ Images stay raw uint8 until the train step's augmentation on the card."""
 from rot_mvgaze_tpu_torch.data.hdf5 import GazeDataset
 from rot_mvgaze_tpu_torch.data.multiview import MultiViewGazeDataset
 from rot_mvgaze_tpu_torch.data.native import NativeBatchLoader, NativePool, PackedGazeDataset
-from rot_mvgaze_tpu_torch.data.packed import PackedFile, pack_dataset, pack_hdf5, write_pack
+from rot_mvgaze_tpu_torch.data.packed import PackedFile, pack_dataset, pack_hdf5, pack_rows, write_pack
 from rot_mvgaze_tpu_torch.data.pairing import (
     CAMERA_TAGS,
     NUM_CAMERAS,
@@ -22,6 +22,7 @@ from rot_mvgaze_tpu_torch.data.synthetic import (
     InMemoryGazeDataset,
     InMemoryMultiViewGazeDataset,
     synthetic_rows,
+    write_synthetic_corpus,
     write_synthetic_dataset,
     write_synthetic_h5,
 )
@@ -45,9 +46,11 @@ __all__ = [
     "device_prefetch",
     "pack_dataset",
     "pack_hdf5",
+    "pack_rows",
     "reference_pair_indices",
     "resolve_pair_index",
     "synthetic_rows",
+    "write_synthetic_corpus",
     "write_synthetic_dataset",
     "write_synthetic_h5",
     "write_pack",

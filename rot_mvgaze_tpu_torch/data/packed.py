@@ -82,6 +82,13 @@ def write_pack(out_path: str, n: int, h: int, w: int, c: int,
     return out_path
 
 
+def _pack_pose(pose: np.ndarray, dataset_name: str) -> np.ndarray:
+    pose = np.array(pose, dtype=np.float32)
+    if dataset_name == "mpiinv":
+        pose[:, 0] *= -1  # the pitch sign convention
+    return pose
+
+
 def pack_hdf5(h5_path: str, out_path: str, dataset_name: str = "xgaze",
               color_type: str = "bgr", chunk: int = 512) -> str:
     """Pack one subject's HDF5 archive (``h5py`` is imported here only)."""
@@ -90,9 +97,7 @@ def pack_hdf5(h5_path: str, out_path: str, dataset_name: str = "xgaze",
     with h5py.File(h5_path, "r") as f:
         n, h, w, c = f["face_patch"].shape
         gaze = np.asarray(f["face_gaze"], dtype=np.float32)
-        pose = np.asarray(f["face_head_pose"], dtype=np.float32)
-        if dataset_name == "mpiinv":
-            pose[:, 0] *= -1  # the pitch sign convention
+        pose = _pack_pose(f["face_head_pose"], dataset_name)
 
         def blocks():
             for start in range(0, n, chunk):
@@ -101,6 +106,18 @@ def pack_hdf5(h5_path: str, out_path: str, dataset_name: str = "xgaze",
 
         write_pack(out_path, n, h, w, c, blocks(), gaze, pose)
     return out_path
+
+
+def pack_rows(out_path: str, face_patch: np.ndarray, face_gaze: np.ndarray,
+              face_head_pose: np.ndarray, dataset_name: str = "xgaze",
+              color_type: str = "bgr") -> str:
+    """Pack one subject's rows as its archive would hold them: the pack
+    :func:`pack_hdf5` writes from an archive of these arrays, byte for byte,
+    with no archive and no ``h5py``."""
+    n, h, w, c = face_patch.shape
+    block = face_patch[..., ::-1] if color_type == "bgr" else face_patch
+    return write_pack(out_path, n, h, w, c, [block], face_gaze,
+                      _pack_pose(face_head_pose, dataset_name))
 
 
 def read_header(path: str) -> Tuple[int, int, int, int, int, int, int]:
@@ -154,13 +171,17 @@ def pack_dataset(dataset_path: str, subjects: Sequence[str], cache_dir: str,
     """The pack of each subject archive under ``cache_dir``
     (``<name>.rmgpack``), packing only those that are missing, older than
     their archive or not whole. A current pack is used as it is, without
-    opening the archive (so without ``h5py``)."""
+    opening the archive (so without ``h5py``); so is a whole pack whose
+    archive is absent (a corpus kept as packs only)."""
     os.makedirs(cache_dir, exist_ok=True)
     out = []
     for name in subjects:
         src = os.path.join(dataset_path, name)
         dst = os.path.join(cache_dir, name + ".rmgpack")
-        if (not os.path.exists(dst) or os.path.getmtime(dst) < os.path.getmtime(src)
+        if not os.path.exists(src):
+            if not is_valid_pack(dst):
+                raise FileNotFoundError(f"{src}: no archive, and {dst} is not a whole pack")
+        elif (not os.path.exists(dst) or os.path.getmtime(dst) < os.path.getmtime(src)
                 or not is_valid_pack(dst)):
             pack_hdf5(src, dst, dataset_name=dataset_name, color_type=color_type)
         out.append(dst)

@@ -4,6 +4,7 @@ Rows have the real datasets' schema and layout: ``face_patch (N,H,W,3)
 uint8``, ``face_gaze (N,2)``, ``face_head_pose (N,2)``, frame-major over 18
 cameras. :func:`synthetic_rows` makes the arrays; :func:`write_synthetic_h5`
 writes them to an HDF5 archive (``h5py`` is imported only there);
+:func:`write_synthetic_corpus` writes a corpus as packs, with no ``h5py``;
 :class:`InMemoryGazeDataset` and :class:`InMemoryMultiViewGazeDataset`
 serve them with ``GazeDataset``'s and ``MultiViewGazeDataset``'s sample
 contracts and no archive at all.
@@ -103,6 +104,33 @@ def write_synthetic_dataset(
             image_size=image_size, seed=seed + i, learnable=learnable,
         )
     return subjects
+
+
+def write_synthetic_corpus(
+    root: str,
+    subjects: list,
+    n_frames: int = 4,
+    image_size: int = 32,
+    seed: int = 0,
+    learnable: bool = False,
+    dataset_name: str = "xgaze",
+    color_type: str = "bgr",
+) -> list:
+    """:func:`write_synthetic_dataset`'s subjects (subject i from seed
+    ``seed + i``) as packs only, with no archive and no ``h5py``:
+    ``<root>/_rmgpack/<dataset_name>/<name>.rmgpack``, the bytes
+    ``pack_hdf5`` writes from the archive (``pack_rows``), which
+    ``PackedGazeDataset(dataset_name, root, color_type, subjects)`` serves.
+    Returns the names."""
+    from rot_mvgaze_tpu_torch.data.packed import pack_rows
+
+    cache = os.path.join(root, "_rmgpack", dataset_name)
+    os.makedirs(cache, exist_ok=True)
+    for i, name in enumerate(subjects):
+        rows = synthetic_rows(n_frames, 18, image_size, seed + i, learnable)
+        pack_rows(os.path.join(cache, name + ".rmgpack"), *rows, dataset_name=dataset_name,
+                  color_type=color_type)
+    return list(subjects)
 
 
 class InMemoryGazeDataset:

@@ -1,15 +1,67 @@
-"""Step timing (port of ``StepTimer`` in ``rot_mvgaze_tpu/utils/profiling.py``).
+"""Tracing and timing hooks (port of ``rot_mvgaze_tpu/utils/profiling.py``).
 
-PyTorch returns before the card has finished, so a step's time is read on
-the host clock after a synchronize of the device its result lives on."""
+- :func:`trace`: a ``torch.profiler`` trace of the region it encloses,
+  written as a Chrome trace file (Perfetto, chrome://tracing).
+- :class:`StepTimer`: step times and images per second. PyTorch returns
+  before the card has finished, so a step's time is read on the host clock
+  after a synchronize of the device its result lives on.
+- :func:`device_memory_stats`: the cards' memory in use, its peak and their
+  capacity.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 import warnings
-from typing import Any, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device: Any = None) -> Iterator[str]:
+    """Trace the enclosed region into ``<log_dir>/trace.json`` (the path is
+    what the context yields): the CPU activity, plus the card's kernels
+    where ``device`` is a card (``None``: where one is visible), with the
+    card synchronised at both edges of the region."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available() if device is None else torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    path = os.path.join(log_dir, "trace.json")
+    prof = profile(activities=activities)
+    if cuda:
+        torch.cuda.synchronize()
+    prof.start()
+    try:
+        yield path
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """``{"cuda:i": {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}}``
+    for every visible card: the caching allocator's allocated bytes now and
+    at their peak (``torch.cuda.memory_stats``) and the card's capacity
+    (``torch.cuda.mem_get_info``). ``{}`` where no card is visible."""
+    out: Dict[str, Dict[str, int]] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        _free, total = torch.cuda.mem_get_info(i)
+        out[str(torch.device("cuda", i))] = {
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(total),
+        }
+    return out
 
 from rot_mvgaze_tpu_torch.utils.helper import AverageMeter
 

@@ -896,3 +896,34 @@ def test_logical_mesh_predictor_matches_one_card(cuda, tmp_path, data, spatial):
             after = fusion.rotate_concat_matmul_relu.launches_by_variant
             assert after["wgmma"] - before["wgmma"] == 2 * 2 * data * 2  # 2 micro-batches
             assert angular_error_numpy(got.astype(np.float64), one.astype(np.float64)).mean() <= 0.1
+
+
+@pytest.mark.gpu
+def test_reference_parity_rehearsal_on_the_card(cuda, tmp_path):
+    """python -m rot_mvgaze_tpu_torch.reference_parity --rehearse on the
+    card (the corpora as packs): exit 0, four finite
+    rows with the reference column empty, and the fuser's generic variant
+    launched 4 times (2 fusion iterations, one launch per view each) per
+    float32 update of the rehearsal's training (108 pairs, 12 updates of 9)
+    and per eval batch (12 for each known protocol, 4 for each novel one),
+    the wgmma variant never; 40 launches of each BN kernel per update (R18:
+    20 BatchNorms per view)."""
+    import json
+
+    from rot_mvgaze_tpu_torch import reference_parity
+
+    out = tmp_path / "table.json"
+    before = dict(fusion.rotate_concat_matmul_relu.launches_by_variant)
+    stats_before = batchnorm.bn_stats.launches
+    rc = reference_parity.main(["--rehearse", "--out", str(out)])
+    torch.cuda.synchronize()
+    assert rc == 0
+    record = json.loads(out.read_text())
+    assert record["device"] == "cuda" and record["rehearsal"] is True
+    assert [r["protocol"] for r in record["rows"]] == list(reference_parity.PROTOCOLS)
+    for r in record["rows"]:
+        assert r["reference_deg"] is None and np.isfinite(r["ours_deg"])
+    after = fusion.rotate_concat_matmul_relu.launches_by_variant
+    assert after["generic"] - before["generic"] == 4 * 12 + 4 * 2 * (12 + 4)
+    assert after["wgmma"] == before["wgmma"]
+    assert batchnorm.bn_stats.launches - stats_before == 40 * 12

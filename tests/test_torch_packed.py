@@ -74,6 +74,24 @@ def test_a_current_pack_is_used_without_its_archive(tmp_path, monkeypatch):
     assert len(calls) == 2
 
 
+def test_a_whole_pack_serves_without_any_archive(tmp_path, monkeypatch):
+    """A corpus kept as packs only (write_synthetic_corpus): each whole pack
+    is used as it is, with nothing to open; a subject with neither archive
+    nor whole pack raises, naming both."""
+    from rot_mvgaze_tpu_torch.data import write_synthetic_corpus
+
+    root, cache = str(tmp_path), str(tmp_path / "_rmgpack" / "xgaze")
+    names = write_synthetic_corpus(root, ["a.h5", "b.h5"], n_frames=1, image_size=8)
+    monkeypatch.setattr(packed, "pack_hdf5", lambda *a, **k: pytest.fail("packed an archive"))
+    paths = packed.pack_dataset(root, names, cache, "xgaze", "bgr")
+    assert paths == [os.path.join(cache, n + ".rmgpack") for n in names]
+    assert [packed.PackedFile(p).n for p in paths] == [18, 18]
+    with open(paths[1], "r+b") as f:
+        f.truncate(os.path.getsize(paths[1]) // 2)
+    with pytest.raises(FileNotFoundError, match="no archive, and .*b.h5.rmgpack is not a whole pack"):
+        packed.pack_dataset(root, names, cache, "xgaze", "bgr")
+
+
 def test_the_packer_command_line(corpus, tmp_path):
     out = str(tmp_path / "packs")
     assert packed._main([corpus, "--dataset", "mpiinv", "--cache_dir", out]) == 0
