@@ -11,8 +11,10 @@ script exits non-zero and prints no result line:
 2. build: compiles every csrc/*.cu for sm_90a and prints each -Xptxas -v
    report (registers, shared memory, spills).
 3. kernels: the fusion kernel against its plain PyTorch version on the
-   card, at the serving shapes, B in {1, 8, 32, 50, 200} (8 and 32: the
-   trainer phase's ragged f32 eval batch and grad_accum micro-batch),
+   card, at the serving shapes, B in {1, 2, 8, 32, 50, 128, 200} (8 and
+   32: the trainer phase's ragged f32 eval batch and grad_accum
+   micro-batch; 128 bf16, 8 bf16 and 2 f32: phase 16's steps and forwards,
+   its requests and entry()'s forward, a shard of its dry run's evaluation),
    H = 1000, R18's widths and an unaligned shape (B = 20: the command line
    phase's ragged f32 eval batch): bf16 at the model's shapes must take the wgmma
    variant, f32 and the unaligned shape the generic one, and each case is
@@ -38,8 +40,9 @@ script exits non-zero and prints no result line:
 6. BatchNorm kernels: the four train-mode BN kernels (csrc/batchnorm.cu)
    against their plain versions run in float64, forward and backward, in
    bf16 and f32, at the step's stem, a layer-1 tail, the layer-4 downsample,
-   a ragged shape and every distinct BN shape of the step at 50 pairs (the
-   command line phase's batch), with bn_stats and bn_bwd_reduce called twice, bit
+   a ragged shape, every distinct BN shape of the step at 50 pairs (the
+   command line phase's batch) and of one backbone call on 256 images
+   (phase 16's bb_train probe), with bn_stats and bn_bwd_reduce called twice, bit
    for bit, and bn_stats in bf16 bit for bit its plain version on the card;
    the fusion Function's gradients against autograd through its plain
    version at B=64.
@@ -253,12 +256,43 @@ script exits non-zero and prints no result line:
    update and per eval batch), its evaluations through the plain versions
    within 1e-3 deg. The table, the errors, the counts and each command's
    seconds on a {"reference_parity": ...} line.
-16. the kernels line, the card line, and as the last line
+16. the benchmark commands, each through its run function, counts set to
+   0 just before each and read just after. (a) The main path: bench at its
+   defaults (R50 x 3, 224x224, 128 pairs, bf16; 3 warm-up and 20 timed
+   steps, FLOPs counted over the first): 106 launches of each BN kernel
+   and 6 of the fuser's wgmma variant per step; its host-clock images/s
+   within 5% of CUDA events' around the same 20 steps. (b) bench_eval in
+   bf16, BENCH_INT8=1 and BENCH_INT8=static at 5 timed calls and 10
+   requests: 6 wgmma fuser launches per forward, 53 int8 GEMMs per forward
+   under int8. (c) bench_sweep's five
+   variants at 3 timed calls (full and noaug 106 / 6 per step, fwdonly 6
+   per forward), bench_probes' four probes at 5 (bb_train 53 of each BN
+   kernel per call), probe_int8 at 10 chained iterations x 2 timed calls
+   (one int8 GEMM per chained iteration; its int8 chain on the card bit
+   for bit the CPU's integer chain), probe_int8_static at 5 (53 int8 GEMMs
+   and 6 wgmma per forward), bench_loader_scaling at 8 threads and
+   bench_cold_path at small sample counts. Phases 3 and 6 hold the kernels
+   against their plain versions at these paths' shapes. (d) dryrun.entry()'s bf16 forward through the kernels
+   against plain_kernels() (mean delta <= 0.1 deg, 6 wgmma launches), and
+   dryrun_multichip(4, "reduced") on ["cuda:0"] * 4 (and on 4 real cards
+   where the process sees them): 6 generic fuser launches per update and
+   for the evaluation. (e) check_command_budgets' three commands on the
+   card, each a fresh process under its budget, started side by side and
+   beside (d) and (f), which time nothing. (f)
+   Determinism: probe_ema_benefit --epochs 2 twice (its 24 float32
+   updates seeded through set_seed): histories, weights and average bit
+   for bit the same, and the record phase 15's; once more with the
+   cudnn.deterministic flag undone after set_seed (a control, recorded);
+   and once in a child process, beside (e), under
+   torch.use_deterministic_algorithms(True) (CUBLAS_WORKSPACE_CONFIG=:4096:8),
+   which must run to its end. Every record and each part's seconds on a
+   {"drivers": ...} line.
+17. the kernels line, the card line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
 
-runs phase 1 and then, instead of phases 2-16, times an earlier checkout's
+runs phase 1 and then, instead of phases 2-17, times an earlier checkout's
 kernels against this tree's in turns on the same card: DIR holds a checkout
 of an earlier commit (for example ``git archive <commit>`` unpacked into a
 directory that .gitignore lists). Four child processes run in the order
@@ -270,7 +304,9 @@ bn_apply over the 106 BN calls of one training step
 backbone, the conv kernel at the probe's shape (run_probe's inputs and
 timing), and its own bf16 GazePredictor (phase 4's checkpoint, micro-batch
 64, time_serving). One JSON line per turn, and a last line with every turn and the
-card.
+card. With ``--what steps`` each turn instead times phase 7's bare step and
+phase 8's Trainer, each seeded through its own tree's set_seed (the cost of
+cuDNN's deterministic algorithms against a tree without them).
 """
 
 from __future__ import annotations
@@ -362,14 +398,19 @@ def check_kernels(fusion) -> float:
     take the wgmma variant, f32 and the unaligned bf16 shape the generic
     one; every case is called twice and must agree bit for bit. b32 is a
     grad_accum=2 micro-batch of the trainer phase, b8 its float32 eval's
-    ragged last batch, b20 the command line phase's."""
+    ragged last batch, b20 the command line phase's; of phase 16, b128 is
+    the batch of bench's step, bench_eval's and probe_int8_static's forward
+    and bench_sweep's, b8 bf16 bench_eval's requests and entry()'s forward,
+    b2 a shard of the dry run's evaluation."""
     cases = [
         ("serving", B, D, V, H, torch.bfloat16), ("serving", B, D, V, H, torch.float32),
         ("b1", 1, D, V, H, torch.bfloat16), ("b1", 1, D, V, H, torch.float32),
-        ("b8", 8, D, V, H, torch.float32),
+        ("b2", 2, D, V, H, torch.float32),
+        ("b8", 8, D, V, H, torch.bfloat16), ("b8", 8, D, V, H, torch.float32),
         ("b20", 20, D, V, H, torch.float32),
         ("b32", 32, D, V, H, torch.bfloat16), ("b32", 32, D, V, H, torch.float32),
         ("b50", 50, D, V, H, torch.bfloat16), ("b50", 50, D, V, H, torch.float32),
+        ("b128", 128, D, V, H, torch.bfloat16),
         ("b200", 200, D, V, H, torch.bfloat16),
         ("h1000", B, D, V, 1000, torch.bfloat16), ("h1000", B, D, V, 1000, torch.float32),
         ("r18", B, 512, V, 2048, torch.bfloat16),
@@ -3729,6 +3770,372 @@ def run_protocol_phase(fusion, batchnorm, stereo_ckpt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the benchmark commands (phase 16)
+# ---------------------------------------------------------------------------
+
+BENCH_EVAL_MODES = {"bf16": "0", "int8": "1", "int8_static": "static"}
+SWEEP_STEPS = 3  # phase 16's timed calls per variant of bench_sweep
+PROBE_STEPS = 5  # and per probe of bench_probes
+BB_TRAIN_IMAGES = 256  # bench_probes' batch: both views of 128 pairs in one backbone call
+EVAL_STEPS, EVAL_REQUESTS = 5, 10  # bench_eval's and probe_int8_static's timed calls, bench_eval's requests
+INT8_ITERS, INT8_REPS = 10, 2  # probe_int8's chained iterations per call and timed calls
+LOADER_THREADS = [8]  # bench_loader_scaling's one point: a thread per core of the card's host
+R50_CONVS = 53  # int8 GEMMs per forward of the int8 backbone (one per conv)
+
+
+def per_step(n: int, per: dict) -> dict:
+    return {k: n * v for k, v in per.items()}
+
+
+def run_bench_command(fusion, batchnorm) -> dict:
+    """Phase 16a, the main path: ``bench.run`` at its defaults (R50 x 3,
+    224x224, 128 pairs, bf16; 3 warm-up and 20 timed steps), the counts set
+    to 0 just before and read just after: 106 launches of each BN kernel and
+    6 of the fuser's wgmma variant per step. Its host-fenced images/s within
+    5% of the CUDA events' around the same 20 steps."""
+    from rot_mvgaze_tpu_torch import bench
+
+    out, counts, by_variant, _ = counted(fusion, batchnorm, lambda: bench.run(bench.read_settings({}), "cuda"))
+    rec, n = out["record"], out["steps_run"]
+    want = per_step(n, PER_STEP)
+    if counts != want or by_variant["wgmma"] != want["fusion"]:
+        raise RuntimeError(f"bench launched {counts} ({by_variant}) over {n} steps, expected {want}, all wgmma")
+    rel = abs(rec["value"] - rec["value_by_cuda_events"]) / rec["value_by_cuda_events"]
+    log(f"bench: {rec['value']:.1f} images/s (CUDA events {rec['value_by_cuda_events']:.1f}, rel {rel:.3e}, "
+        f"bar 0.05), {rec['flops_per_step'] / 1e12:.3f} TFLOP per step, mfu {rec['mfu']:.4f}; {n} steps of "
+        f"{PER_STEP}")
+    if not rel <= 0.05:
+        raise RuntimeError(f"bench's host clock and CUDA events disagree: {rec}")
+    return {"record": rec, "launches": counts, "by_variant": by_variant, "steps_run": n,
+            "host_vs_events_rel": rel}
+
+
+def run_eval_commands(fusion, batchnorm) -> dict:
+    """Phase 16b: bench_eval in bf16, BENCH_INT8=1 and BENCH_INT8=static, at
+    EVAL_STEPS timed calls and EVAL_REQUESTS requests: per forward 6 wgmma
+    fuser launches, 53 int8 GEMMs under int8, no train-mode BN kernel."""
+    from rot_mvgaze_tpu_torch import bench_eval
+
+    records, fused = {}, 0
+    for name, raw in BENCH_EVAL_MODES.items():
+        settings = bench_eval.read_settings({"BENCH_INT8": raw})
+        out, counts, by_variant, gemms = counted(
+            fusion, batchnorm, lambda: bench_eval.run(settings, "cuda", n_steps=EVAL_STEPS, n_latency=EVAL_REQUESTS))
+        n = out["forwards"]
+        want = {**dict.fromkeys(PER_STEP, 0), "fusion": 6 * n}
+        want_gemms = R50_CONVS * n if settings["int8"] else 0
+        if counts != want or by_variant["wgmma"] != want["fusion"] or gemms != want_gemms:
+            raise RuntimeError(f"bench_eval {name}: launches {counts} ({by_variant}), int8 GEMM {gemms} over {n} "
+                               f"forwards; expected {want}, all wgmma, int8 GEMM {want_gemms}")
+        records[name] = {**out["record"], "forwards": n, "int8_gemm_launches": gemms}
+        fused += counts["fusion"]
+        log(f"bench_eval {name}: {json.dumps(out['record'])}")
+        torch.cuda.empty_cache()
+    return {"records": records, "fusion": fused}
+
+
+def run_split_commands(fusion, batchnorm, tmp) -> dict:
+    """Phase 16c: bench_sweep's five variants at SWEEP_STEPS timed calls,
+    bench_probes' four probes at PROBE_STEPS, probe_int8 at INT8_ITERS x
+    INT8_REPS (its int8 chain on the card bit for bit the integer chain on
+    the CPU), probe_int8_static at EVAL_STEPS, bench_loader_scaling at one
+    thread count and bench_cold_path, both at small sample counts. Launches: full and noaug 106 of each BN kernel and 6
+    wgmma fuser per step, fwdonly 6 wgmma per forward; bb_train 53 of each BN
+    kernel per call; probe_int8 one int8 GEMM per chained conv or product."""
+    from rot_mvgaze_tpu_torch import (
+        bench_cold_path,
+        bench_loader_scaling,
+        bench_probes,
+        bench_sweep,
+        probe_int8,
+        probe_int8_static,
+    )
+
+    out = {}
+    calls = 3 + SWEEP_STEPS
+    sweep, counts, by_variant, _ = counted(
+        fusion, batchnorm, lambda: bench_sweep.run(list(bench_sweep.VARIANTS), steps=SWEEP_STEPS, log=log))
+    want = {**per_step(2 * calls, PER_STEP), "fusion": 2 * calls * 6 + calls * 6}
+    if counts != want or by_variant["wgmma"] != want["fusion"]:
+        raise RuntimeError(f"bench_sweep launched {counts} ({by_variant}), expected {want}, all wgmma")
+    out["sweep"], launches = sweep, dict(counts)
+    torch.cuda.empty_cache()
+
+    calls = 3 + PROBE_STEPS
+    probes, counts, _, _ = counted(
+        fusion, batchnorm, lambda: bench_probes.run(list(bench_probes.PROBES), BB_TRAIN_IMAGES, PROBE_STEPS, log=log))
+    want = {**{k: 53 * calls for k in BN_KERNELS}, "fusion": 0, "conv3x3_bn_stats": 0}
+    if counts != want:
+        raise RuntimeError(f"bench_probes launched {counts}, expected {want}")
+    out["probes"] = probes
+    for k, n in counts.items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+
+    # the int8 chain through im2col and torch._int_mm against the CPU's exact integer chain
+    rng = np.random.default_rng(5)
+    x8, w8, _, _ = probe_int8.conv_operands(rng, (4, 14, 14, 64), (3, 3, 64, 64), "cpu")
+    a8 = torch.from_numpy(rng.integers(-127, 127, (40, 96), dtype=np.int8))
+    b8 = torch.from_numpy(rng.integers(-127, 127, (96, 96), dtype=np.int8))
+    exact = (torch.equal(probe_int8.int8_conv_chain(x8.cuda(), w8.cuda(), 3).cpu(),
+                         probe_int8.int8_conv_chain(x8, w8, 3))
+             and torch.equal(probe_int8.int8_dot_chain(a8.cuda(), b8.cuda(), 3).cpu(),
+                             probe_int8.int8_dot_chain(a8, b8, 3)))
+    if not exact:
+        raise RuntimeError("probe_int8's int8 chain on the card differs from the CPU's integer chain")
+    int8, _, _, gemms = counted(fusion, batchnorm, lambda: probe_int8.run(INT8_ITERS, INT8_REPS, log=log))
+    want_gemms = INT8_ITERS * (1 + INT8_REPS) * (len(probe_int8.CONV_CASES) + len(probe_int8.DOT_CASES))
+    if gemms != want_gemms:
+        raise RuntimeError(f"probe_int8 launched {gemms} int8 GEMMs, expected {want_gemms}")
+    out["probe_int8"] = int8
+    static, counts, by_variant, gemms = counted(fusion, batchnorm,
+                                                lambda: probe_int8_static.run(steps=EVAL_STEPS, log=log))
+    n = static["forwards"]
+    if gemms != R50_CONVS * n or counts["fusion"] != 6 * n or by_variant["wgmma"] != 6 * n:
+        raise RuntimeError(f"probe_int8_static launched {gemms} int8 GEMMs and {counts} ({by_variant}) over {n} "
+                           f"forwards")
+    out["probe_int8_static"] = static["record"]
+    launches["fusion"] += counts["fusion"]
+    torch.cuda.empty_cache()
+
+    out["loader_scaling"] = bench_loader_scaling.run(LOADER_THREADS, samples=256, iter_samples=1024, work_dir=tmp,
+                                                     log=log)
+    log("\n" + bench_loader_scaling.table(out["loader_scaling"]))
+    out["cold_path"] = bench_cold_path.run(samples=128, files=2, work_dir=tmp, log=log)
+    log(f"bench_cold_path: {json.dumps(out['cold_path'])}")
+    return {"numbers": out, "launches": launches, "int8_exact": exact}
+
+
+def run_dryrun_commands(fusion, batchnorm) -> dict:
+    """Phase 16d: dryrun.entry()'s forward through the kernels against
+    plain_kernels() (phase 4's bf16 bar, mean angular delta <= 0.1 deg; 6
+    wgmma fuser launches), and dryrun_multichip(4, "reduced") on a logical
+    mesh of cuda:0 (and on 4 real cards where the process sees them): 6
+    generic fuser launches per update and for the evaluation."""
+    from rot_mvgaze_tpu_torch import dryrun
+    from rot_mvgaze_tpu_torch.geometry import angular_error
+
+    fn, args = dryrun.entry()
+    pred, counts, by_variant, _ = counted(fusion, batchnorm, lambda: fn(*args))
+    want = {**dict.fromkeys(PER_STEP, 0), "fusion": 6}
+    if counts != want or by_variant["wgmma"] != 6:
+        raise RuntimeError(f"entry's forward launched {counts} ({by_variant}), expected {want}, all wgmma")
+    with plain_kernels():
+        plain = fn(*args)
+    delta = float(angular_error(pred, plain).mean())
+    log(f"dryrun.entry(): (8, 2) bf16 forward, kernels against plain versions mean {delta:.3e} deg (bar 0.1)")
+    if pred.shape != (8, 2) or not torch.isfinite(pred).all() or not delta <= 0.1:
+        raise RuntimeError(f"entry's forward: {tuple(pred.shape)}, delta {delta} deg")
+    del fn, args
+    torch.cuda.empty_cache()
+    runs, launches = {}, dict(counts)
+    meshes = {"logical": ["cuda:0"] * 4}
+    if torch.cuda.device_count() >= 4:
+        meshes["cards"] = [f"cuda:{i}" for i in range(4)]
+    else:
+        log(f"dryrun_multichip(4) over real cards: not run ({torch.cuda.device_count()} visible)")
+    for name, devices in meshes.items():
+        run, counts, by_variant, _ = counted(
+            fusion, batchnorm, lambda: dryrun.dryrun_multichip(4, config="reduced", devices=devices))
+        want_fusion = 6 * (run["updates"] + 1)
+        if counts["fusion"] != want_fusion or by_variant["generic"] != want_fusion or not all(
+                counts[k] for k in BN_KERNELS):
+            raise RuntimeError(f"dryrun_multichip(4) on {name} launched {counts} ({by_variant}); expected "
+                               f"{want_fusion} generic fuser launches and the BN kernels")
+        runs[name] = {**run, "launches": counts}
+        for k, n in counts.items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+    return {"entry_mean_delta_deg": delta, "dryrun": runs, "launches": launches}
+
+
+def ema_probe_once(tmp: str, cudnn_deterministic: bool = True) -> dict:
+    """probe_ema_benefit --epochs 2 on the card: its record, its unrounded
+    history and its final weights and average on the host.
+    ``cudnn_deterministic=False``: the control, with the flag set_seed sets
+    undone right after it (cuDNN free to take any algorithm, as before the
+    repair)."""
+    from rot_mvgaze_tpu_torch import probe_ema_benefit as pe
+    from rot_mvgaze_tpu_torch.utils import seed
+
+    args = pe.get_parser().parse_args(["--epochs", "2", "--device", "cuda"])
+    set_seed = seed.set_seed
+
+    def without_the_flag(*a, **kw):
+        gen = set_seed(*a, **kw)
+        torch.backends.cudnn.deterministic = False
+        return gen
+
+    if not cudnn_deterministic:
+        seed.set_seed = without_the_flag
+    try:
+        out = pe.run(args, tmp)
+    finally:
+        seed.set_seed = set_seed
+        torch.backends.cudnn.deterministic = True
+    state = out["state"]
+    return {"record": out["record"], "history": state["history"],
+            "model": {k: v.detach().cpu().clone() for k, v in state["model"].state_dict().items()},
+            "ema": {k: v.detach().cpu().clone() for k, v in state["ema"].items()}}
+
+
+def weights_digest(run: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in ("model", "ema"):
+        for k in sorted(run[part]):
+            h.update(k.encode())
+            h.update(run[part][k].contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def det_worker(out_path: str) -> None:
+    """Child process of the determinism check: probe_ema_benefit --epochs 2
+    under torch.use_deterministic_algorithms(True), which raises on any
+    operation without a deterministic implementation (CUBLAS_WORKSPACE_CONFIG
+    set by the parent); writes the history and the weights' digest. TF32
+    off, as in the parent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = ema_probe_once(tmp)
+    with open(out_path, "w") as f:
+        json.dump({"history": run["history"], "digest": weights_digest(run),
+                   "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}, f)
+
+
+def start_det_worker(path: str) -> subprocess.Popen:
+    """The child process of :func:`det_worker`, started; it writes to
+    ``path``."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--det-worker", path], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def run_determinism(phase15_record: dict, worker: subprocess.Popen, path: str) -> dict:
+    """Phase 16f: probe_ema_benefit --epochs 2 (phase 15's cut: 24 float32
+    updates at 3e-4) twice in this process, through set_seed: the histories,
+    the weights and the average bit for bit the same, and the record phase
+    15's; and the child process ``worker`` (:func:`start_det_worker`), the
+    probe under torch.use_deterministic_algorithms(True), which must run to
+    its end (no operation of the path without a deterministic
+    implementation). One control run, with cuDNN's flag undone, is recorded
+    beside them: whether its bits differ from the seeded runs'."""
+    runs = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as tmp:
+            runs.append(ema_probe_once(tmp))
+        torch.cuda.empty_cache()
+    a, b = runs
+    same_weights = all(torch.equal(a[p][k], b[p][k]) for p in ("model", "ema") for k in a[p])
+    same = a["history"] == b["history"] and same_weights and a["record"] == phase15_record
+    digest = weights_digest(a)
+    log(f"determinism: two seeded EMA probe runs {'bit for bit the same' if same else 'DIFFER'}: "
+        f"{a['history']} / {b['history']}; phase 15 {phase15_record['history']}; weights {digest[:16]}")
+    if not same:
+        raise RuntimeError(f"seeded training is not repeatable: {a['history']} against {b['history']} "
+                           f"(weights the same: {same_weights}; phase 15 {phase15_record})")
+    with tempfile.TemporaryDirectory() as tmp:
+        control = ema_probe_once(tmp, cudnn_deterministic=False)
+    control_same = control["history"] == a["history"] and weights_digest(control) == digest
+    log(f"determinism, control (cudnn.deterministic off): {control['history']} "
+        f"({'the same bits as the seeded runs' if control_same else 'other bits than the seeded runs'})")
+    stdout, stderr = worker.communicate(timeout=300)
+    if worker.returncode != 0:
+        raise RuntimeError(f"the EMA probe under torch.use_deterministic_algorithms(True) failed:\n"
+                           f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    with open(path) as f:
+        det = json.load(f)
+    det["same_as_in_process"] = det["history"] == a["history"] and det["digest"] == digest
+    log(f"determinism: under use_deterministic_algorithms(True) the probe ran to its end: {det['history']} "
+        f"(the same bits as in this process: {det['same_as_in_process']})")
+    return {"history": a["history"], "digest": digest, "repeat_bit_for_bit": same,
+            "deterministic_algorithms": det,
+            "control_without_cudnn_deterministic": {"history": control["history"],
+                                                    "same_bits_as_seeded": control_same}}
+
+
+def run_budget_checks() -> dict:
+    """check_command_budgets' three commands on the card, each a fresh
+    process under its budget, started side by side (each is timed alone
+    from its own start, so running beside the others only makes its budget
+    harder to keep); the module's summary of each."""
+    from rot_mvgaze_tpu_torch import check_command_budgets
+
+    todo = check_command_budgets.checks("cuda")
+    out: list = [None] * len(todo)
+
+    def one(i):
+        out[i] = check_command_budgets.run_checks([todo[i]], "cuda")
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(todo))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    checks = [c for summary in out if summary for c in summary["checks"]]
+    return {"ok": len(checks) == len(todo) and all(c["ok"] for c in checks), "checks": checks}
+
+
+def run_drivers_phase(fusion, batchnorm, phase15_record) -> dict:
+    """Phase 16: the benchmark commands on the card. Returns the main path's
+    launch counts (bench, bench_eval, bench_sweep, bench_probes, the int8
+    probes, entry and the dry runs) and the numbers."""
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        bench_out = timed("bench", lambda: run_bench_command(fusion, batchnorm))
+        evals = timed("bench_eval", lambda: run_eval_commands(fusion, batchnorm))
+        split = timed("split", lambda: run_split_commands(fusion, batchnorm, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the budgets' commands and the determinism check's child (fresh
+        # processes) run beside the parts that time nothing: the forward
+        # check, the dry runs, the in-process determinism runs
+        path = os.path.join(tmp, "det.json")
+        worker = start_det_worker(path)
+        budgets: dict = {}
+
+        def run_budgets():
+            t0 = time.perf_counter()
+            budgets.update(run_budget_checks())
+            budgets["seconds"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=run_budgets)
+        thread.start()
+        try:
+            dry = timed("dryrun", lambda: run_dryrun_commands(fusion, batchnorm))
+            det = timed("determinism", lambda: run_determinism(phase15_record, worker, path))
+        finally:
+            thread.join()
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+    seconds["check_command_budgets"] = budgets.get("seconds")
+    log(f"check_command_budgets on the card, side by side: {json.dumps(budgets)}")
+    if not budgets.get("ok"):
+        raise RuntimeError(f"check_command_budgets failed on the card: {budgets}")
+    launches = {k: bench_out["launches"][k] + split["launches"][k] + dry["launches"][k] for k in PER_STEP}
+    launches["fusion"] += evals["fusion"]
+    out = {"bench": bench_out["record"], "bench_host_vs_events_rel": bench_out["host_vs_events_rel"],
+           "bench_launches": bench_out["launches"], "bench_eval": evals["records"], **split["numbers"],
+           "probe_int8_chain_exact": split["int8_exact"], "entry_mean_delta_deg": dry["entry_mean_delta_deg"],
+           "dryrun": dry["dryrun"], "determinism": det, "check_command_budgets": budgets,
+           "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase}
+    log(f"drivers phase: {json.dumps(seconds)}; {out['seconds']:.1f} s in all")
+    return {"numbers": out, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # old against new in turns (--old DIR)
 # ---------------------------------------------------------------------------
 
@@ -3756,26 +4163,68 @@ def step_bn_shapes(pairs: int = PAIRS) -> list:
     return shapes
 
 
-def step_bn_cases(pairs: int) -> list:
-    """Every distinct BN shape of the R50 step at ``pairs`` pairs, as
-    BN_CASES entries (name, rows, C, relu, residual)."""
+def step_bn_cases(pairs: int, name: str = "") -> list:
+    """Every distinct BN shape of the R50 step at ``pairs`` pairs (of one
+    backbone call on ``pairs`` images), as BN_CASES entries (name, rows, C,
+    relu, residual)."""
     cases = {}
     for (n, c, h, w), relu, res in step_bn_shapes(pairs):
         cases.setdefault((n * h * w, c, relu, res), None)
-    return [(f"{pairs}-pair step", rows, c, relu, res) for rows, c, relu, res in cases]
+    return [(name or f"{pairs}-pair step", rows, c, relu, res) for rows, c, relu, res in cases]
 
 
 TURN_KERNELS = ("bn_bwd_dx", "bn_bwd_reduce", "bn_stats", "bn_apply")
 
 
-def run_turn(tree: str, shapes_file: str) -> dict:
+def time_steps() -> dict:
+    """A turn's ``--what steps``: phase 7's bare R50 x 3 step (64 pairs,
+    bf16; 2 warm-up and 10 timed steps) seeded through the tree's
+    ``set_seed``, and the tree's Trainer (phase 8's corpus and
+    ``port_trainer``: one epoch of 3 updates as warm-up, then 2 epochs
+    timed), images/s on the host clock; and the cuDNN flags the tree's
+    seeding left."""
+    from rot_mvgaze_tpu_torch.data import InMemoryGazeDataset
+    from rot_mvgaze_tpu_torch.models import FeatRotationSymm
+    from rot_mvgaze_tpu_torch.utils.seed import set_seed
+
+    gen = set_seed(0, "cuda")
+    flags = {"cudnn_deterministic": torch.backends.cudnn.deterministic,
+             "cudnn_benchmark": torch.backends.cudnn.benchmark}
+    model, step = make_trainer(FeatRotationSymm(backbone_depth=50, num_iter=3).state_dict(), torch.bfloat16)
+    batch = training_batch(seed=21)
+    for i in range(2):
+        step(batch, gen, step=i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 12):
+        step(batch, gen, step=i)
+    torch.cuda.synchronize()
+    bare = 2 * PAIRS * 10 / (time.perf_counter() - t0)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    train_ds = InMemoryGazeDataset(2, n_frames=6, image_size=224, seed=0, learnable=True)
+    test_ds = InMemoryGazeDataset(1, n_frames=4, image_size=224, seed=100, learnable=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = port_trainer(tmp, train_ds, test_ds, print_freq=10**9, epochs=3)
+        trainer.train_one_epoch(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in (1, 2):
+            trainer.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        through_trainer = 2 * PAIRS * 6 / (time.perf_counter() - t0)
+    return {"bare_step_imgs_per_s": bare, "trainer_imgs_per_s": through_trainer, **flags}
+
+
+def run_turn(tree: str, shapes_file: str, what: str = "kernels") -> dict:
     """One turn, in a child process: import ``tree``'s port, build its
     kernels and time the fuser at the serving shape (time_cuda, W1 from
     HBM), each kernel of TURN_KERNELS over the step's 106 BN calls
     (device_ms), on the inputs of time_fusion and time_bn, the conv
     kernel at the probe's shape (time_cuda on conv_probe_case's inputs),
     and ``tree``'s bf16 GazePredictor at micro-batch 64 (phase 4's
-    checkpoint and time_serving)."""
+    checkpoint and time_serving); with ``what="steps"``, :func:`time_steps`
+    instead."""
     sys.path.insert(0, tree)
     from rot_mvgaze_tpu_torch.kernels import build
     from rot_mvgaze_tpu_torch.ops import batchnorm, conv_bn, fusion
@@ -3783,6 +4232,8 @@ def run_turn(tree: str, shapes_file: str) -> dict:
     if not fusion.__file__.startswith(tree):
         raise RuntimeError(f"turn of {tree} imported {fusion.__file__}")
     build.build()
+    if what == "steps":
+        return {"tree": tree, **time_steps()}
     _, _, kernel = fusion_serving_case(fusion)
     with open(shapes_file) as f:
         calls = bn_calls(batchnorm, json.load(f))
@@ -3806,12 +4257,12 @@ def run_turn(tree: str, shapes_file: str) -> dict:
     return record
 
 
-def kernel_turns(old: str, card: str, pairs: int = 2) -> dict:
-    """The fuser, the BN kernels of TURN_KERNELS and the conv kernel of
-    an earlier checkout ``old`` against this tree's, in ``pairs`` pairs of
-    child processes on one card, the order alternating: old, new, new,
-    old, old, new, ... Each child prints one JSON line; so does each turn
-    here."""
+def kernel_turns(old: str, card: str, pairs: int = 2, what: str = "kernels") -> dict:
+    """The fuser, the BN kernels of TURN_KERNELS and the conv kernel (or,
+    ``what="steps"``, the bare step and the Trainer) of an earlier checkout
+    ``old`` against this tree's, in ``pairs`` pairs of child processes on
+    one card, the order alternating: old, new, new, old, old, new, ...
+    Each child prints one JSON line; so does each turn here."""
     new = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(old, "rot_mvgaze_tpu_torch")):
         raise RuntimeError(f"{old} holds no rot_mvgaze_tpu_torch")
@@ -3824,7 +4275,7 @@ def kernel_turns(old: str, card: str, pairs: int = 2) -> dict:
     for label, tree in (turn for pair in order for turn in pair):
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--turn", tree, "--shapes", shapes_file],
+            [sys.executable, os.path.abspath(__file__), "--turn", tree, "--shapes", shapes_file, "--what", what],
             capture_output=True, text=True, cwd=tree, timeout=900,
         )
         if proc.returncode != 0:
@@ -3847,7 +4298,11 @@ def main(argv=None) -> int:
                     help="with --old: pairs of turns, the order alternating (2: old, new, new, old)")
     ap.add_argument("--turn", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--what", default="kernels", choices=["kernels", "steps"],
+                    help="with --old: what each turn times: the kernels and bf16 serving, or the bare R50 "
+                         "step and the Trainer (each seeded through its tree's set_seed)")
     ap.add_argument("--dp-worker", nargs=2, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--det-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a card", file=sys.stderr)
@@ -3855,8 +4310,11 @@ def main(argv=None) -> int:
     if args.dp_worker:
         dp_worker(*args.dp_worker)
         return 0
+    if args.det_worker:
+        det_worker(args.det_worker)
+        return 0
     if args.turn:
-        print(json.dumps(run_turn(os.path.abspath(args.turn), args.shapes)), flush=True)
+        print(json.dumps(run_turn(os.path.abspath(args.turn), args.shapes, args.what)), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3864,7 +4322,7 @@ def main(argv=None) -> int:
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.old:
-        print(json.dumps(kernel_turns(os.path.abspath(args.old), card, args.pairs)), flush=True)
+        print(json.dumps(kernel_turns(os.path.abspath(args.old), card, args.pairs, args.what)), flush=True)
         return 0
 
     from rot_mvgaze_tpu_torch.kernels import build
@@ -3878,7 +4336,9 @@ def main(argv=None) -> int:
         print(f"--- nvcc -Xptxas -v: {src}\n{report.strip()}", flush=True)
 
     max_abs_err = check_kernels(fusion)
-    bn_err = check_bn_kernels(batchnorm, BN_CASES + step_bn_cases(CLI_BATCH))
+    # and bench_probes' bb_train (phase 16): one backbone call on both views' 256 images
+    bn_err = check_bn_kernels(batchnorm, BN_CASES + step_bn_cases(CLI_BATCH)
+                              + step_bn_cases(BB_TRAIN_IMAGES, f"bb_train call of {BB_TRAIN_IMAGES} images"))
     check_fusion_grads(fusion)
     conv_err = check_conv_kernel(conv_bn)
     conv = run_conv_probe(conv_bn, tag)
@@ -3922,6 +4382,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     protocols = run_protocol_phase(fusion, batchnorm, trainer["checkpoint"])
     keep.cleanup()
+    torch.cuda.empty_cache()
+    drivers = run_drivers_phase(fusion, batchnorm, protocols["numbers"]["probe_ema_benefit"]["record"])
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -3934,6 +4396,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh_spatial": mesh["numbers"], **tag}), flush=True)
     print(json.dumps({"int8_mesh": int8_mesh["numbers"], **tag}), flush=True)
     print(json.dumps({"reference_parity": protocols["numbers"], **tag}), flush=True)
+    print(json.dumps({"drivers": drivers["numbers"], **tag}), flush=True)
     for metric, value, unit in [
         ("fusion_kernel_ms", timing["ms"], "ms"),
         ("fusion_plain_ms", timing["plain_ms"], "ms"),
@@ -3983,6 +4446,11 @@ def main(argv=None) -> int:
         ("int8_mesh_phase_seconds", int8_mesh["numbers"]["seconds"], "s"),
         ("protocol_commands_phase_seconds", protocols["numbers"]["seconds"], "s (the four-protocol table at R50, "
          "pairing_sensitivity and probe_ema_benefit, each with its plain-version check)"),
+        ("bench_imgs_per_s", drivers["numbers"]["bench"]["value"],
+         "images/s of python -m rot_mvgaze_tpu_torch.bench at its defaults (R50 x 3, 224^2, 128 pairs, bf16; "
+         "host clock over 20 steps)"),
+        ("bench_mfu", drivers["numbers"]["bench"]["mfu"], "flops_per_step x steps/s / 989e12"),
+        ("drivers_phase_seconds", drivers["numbers"]["seconds"], "s (the benchmark commands)"),
     ] + [
         (f"mesh_serve_{k}_{name}", rec[f"bf16_serve_{k}"], unit)
         for name, rec in mesh["numbers"]["logical"]["serving"].items() if name.startswith("data")
@@ -4021,13 +4489,14 @@ def main(argv=None) -> int:
         "launches": served_launches + trained["launches"]["fusion"] + trainer["launches"]["fusion"]
                     + cli["launches"]["fusion"] + family["launches"]["fusion"] + surface["launches"]
                     + options["launches"]["fusion"] + dp_ranks["fusion"] + mesh_fusion + int8_mesh_fusion
-                    + protocols["launches"]["fusion"],
+                    + protocols["launches"]["fusion"] + drivers["launches"]["fusion"],
         "launches_by_path": {"serving": served_launches, "training": trained["launches"]["fusion"],
                              "trainer": trainer["launches"]["fusion"], "cli": cli["launches"]["fusion"],
                              "model_family": family["launches"]["fusion"], "serving_surface": surface["launches"],
                              "options": options["launches"]["fusion"], "data_parallel_ranks": dp_ranks["fusion"],
                              "mesh_spatial": mesh_fusion, "int8_mesh": int8_mesh_fusion,
-                             "protocol_commands": protocols["launches"]["fusion"]},
+                             "protocol_commands": protocols["launches"]["fusion"],
+                             "drivers": drivers["launches"]["fusion"]},
         "int8_gemm_launches_int8_mesh": int8_mesh["launches"]["int8_gemm"],
         "launches_by_variant": {k: served_variants[k] + trained["fusion_by_variant"][k]
                                 + trainer["by_variant"][k] + cli["by_variant"][k] + family["by_variant"][k]
@@ -4046,12 +4515,13 @@ def main(argv=None) -> int:
         "replaces": replaces,
         "launches": trained["launches"][kind] + trainer["launches"][kind] + cli["launches"][kind]
                     + family["launches"][kind] + options["launches"][kind] + dp_ranks[kind]
-                    + mesh["launches"].get(kind, 0) + protocols["launches"][kind],
+                    + mesh["launches"].get(kind, 0) + protocols["launches"][kind] + drivers["launches"][kind],
         "launches_by_path": {"training": trained["launches"][kind], "trainer": trainer["launches"][kind],
                              "cli": cli["launches"][kind], "model_family": family["launches"][kind],
                              "options": options["launches"][kind], "data_parallel_ranks": dp_ranks[kind],
                              "mesh_spatial": mesh["launches"].get(kind, 0),
-                             "protocol_commands": protocols["launches"][kind]},
+                             "protocol_commands": protocols["launches"][kind],
+                             "drivers": drivers["launches"][kind]},
         **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]],
             "finish_launches_mesh_spatial": mesh["launches"].get(DP_FINISH[kind], 0)} if kind in DP_FINISH else {}),
         **{f"{name}_ms": rec["ms"] for name, rec in options["numbers"]["options_bn_ms_per_step"].items()

@@ -135,12 +135,13 @@ def run(args: argparse.Namespace, work: str) -> Dict[str, Any]:
     from rot_mvgaze_tpu_torch.data.pipeline import BatchLoader
     from rot_mvgaze_tpu_torch.models import FeatRotationSymm
     from rot_mvgaze_tpu_torch.utils.device import resolve_device
+    from rot_mvgaze_tpu_torch.utils.seed import set_seed
 
     device = resolve_device(args.device)
     train_names, eval_names = write_corpus(work, args)
     train_ds = PackedGazeDataset("xgaze", work, "bgr", train_names, seed=args.seed, use_native=False)
     eval_ds = PackedGazeDataset("xgaze", work, "bgr", eval_names, seed=args.seed, use_native=False)
-    torch.manual_seed(args.seed)
+    set_seed(args.seed, device)  # the weights' draws, and cuDNN's deterministic algorithms
     model = FeatRotationSymm(backbone_depth=18, num_iter=1).to(device=device, memory_format=torch.channels_last)
     eval_loader = BatchLoader(eval_ds, batch_size=args.batch)
     history, ema = train_and_score(

@@ -63,7 +63,9 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                    "data.packed", "data.native", "compat.msgpack", "compat.pretrained", "compat.download", "cli.main",
                    "__main__", "models.multiview", "models.single", "losses.multiview",
                    "data.multiview", "train.multiview_steps", "ops.quant", "export", "export_model",
-                   "parallel.distributed", "parallel.mesh", "parallel.spatial"):
+                   "parallel.distributed", "parallel.mesh", "parallel.spatial", "utils.drivers", "bench",
+                   "bench_eval", "bench_sweep", "bench_probes", "probe_int8", "probe_int8_static",
+                   "bench_loader_scaling", "bench_cold_path", "dryrun", "check_command_budgets"):
         assert f"rot_mvgaze_tpu_torch.{module}" in result["imported"]
     assert [m for m in result["loaded"] if _forbidden(m)] == []
     assert [m for m in result["loaded"] if m.split(".")[0] in NOT_ON_THE_CARD] == []
