@@ -223,10 +223,21 @@ script exits non-zero and prints no result line:
    kernels included); each bf16 update's host ms beside the unsharded one;
    the BN kernels against float64 at every distinct strip shape of the (1,
    2) update. (c) --spatial_partition 2 with one visible card is refused in
-   JAX's words. Where the process sees more than one card, (a) and (b)
-   again over the real cards, and two updates through the command line's
-   build_experiment over two of them, with each card's peak memory. The
-   phase's seconds.
+   JAX's words. (d) The V-view model (V=3, 64 frames, 192 images) on
+   (data 2) and (data 4) from the same checkpoint: one f32 update on each
+   against the unsharded update (loss rtol 1e-4, every gradient atol 5e-3 /
+   rtol 5e-2, phase 7b's float64 rule recorded where one misses it, BN
+   buffers within 1e-4), one bf16 update on each at phase 7b's bars (past
+   0.1 deg, (b)'s rule), each with the launches PERF.md predicted
+   (PER_MV_MESH_UPDATE: every BN kernel once per block, each finish kernel
+   once per BN call, no fuser) and its host ms beside the unsharded
+   update's; the BN kernels against float64 at every distinct block shape
+   of the (data 2) and (data 4) updates (96 and 48 images); the V-view eval step on 67 frames
+   (padded by samples) on each mesh against one device at phase 4's f32
+   bar, no kernel launched. Where the process sees more than one card, (a),
+   (b) and (d) again over the real cards, and two updates through the
+   command line's build_experiment over two of them, with each card's peak
+   memory. The phase's seconds.
 14. int8 serving under a mesh, R50 x 3, full width, 224x224, micro-batch
    64, on phase 13's logical meshes of cuda:0, counts set to 0 just before
    each predict and read just after: GazePredictor(mesh=, int8=True |
@@ -261,7 +272,10 @@ script exits non-zero and prints no result line:
    defaults (R50 x 3, 224x224, 128 pairs, bf16; 3 warm-up and 20 timed
    steps, FLOPs counted over the first): 106 launches of each BN kernel
    and 6 of the fuser's wgmma variant per step; its host-clock images/s
-   within 5% of CUDA events' around the same 20 steps. (b) bench_eval in
+   within 5% of CUDA events' around the same 20 steps; and bench with
+   BENCH_NUM_VIEWS=3 BENCH_BATCH=32 on cuda:0,cuda:0 (a logical (data 2)
+   mesh, 192 images per step): per step phase 13d's (data 2) launches, host
+   within 5% of CUDA events, n_chips 2. (b) bench_eval in
    bf16, BENCH_INT8=1 and BENCH_INT8=static at 5 timed calls and 10
    requests: 6 wgmma fuser launches per forward, 53 int8 GEMMs per forward
    under int8. (c) bench_sweep's five
@@ -276,7 +290,11 @@ script exits non-zero and prints no result line:
    against plain_kernels() (mean delta <= 0.1 deg, 6 wgmma launches), and
    dryrun_multichip(4, "reduced") on ["cuda:0"] * 4 (and on 4 real cards
    where the process sees them): 6 generic fuser launches per update and
-   for the evaluation. (e) check_command_budgets' three commands on the
+   for the evaluation; and dryrun_multichip(4, "multiview") (R18/64², V=3,
+   f32) on the same meshes: 80 launches of each BN kernel and 20 of each
+   finish kernel per update, no fuser, the evaluation of 6 frames padded to
+   8, with the BN kernels against float64 at its 3-image block shapes. (e)
+   check_command_budgets' three commands on the
    card, each a fresh process under its budget, started side by side and
    beside (d) and (f), which time nothing. (f)
    Determinism: probe_ema_benefit --epochs 2 twice (its 24 float32
@@ -287,7 +305,8 @@ script exits non-zero and prints no result line:
    torch.use_deterministic_algorithms(True) (CUBLAS_WORKSPACE_CONFIG=:4096:8),
    which must run to its end. Every record and each part's seconds on a
    {"drivers": ...} line.
-17. the kernels line, the card line, and as the last line
+17. the {"phase_seconds": ...} line (each phase's seconds and the whole
+   run's), the card line, the kernels line, and as the last line
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --old DIR
@@ -3187,22 +3206,32 @@ def record_strip_shapes(model, shapes: list) -> list:
     return [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, BatchNormAct)]
 
 
-def spatial_update(fusion, batchnorm, state, batch, dtype, devices, sp, seed=91, shapes=None) -> dict:
-    """One update of 64 pairs from ``state`` on ``sp`` of ``devices`` (a
-    (data 1, spatial sp) mesh; None: unsharded on the first), counts set to
-    0 just before and read just after; its loss, pred_gaze, gradients, BN
-    buffers and counts."""
+def mesh_update(fusion, batchnorm, state, batch, dtype, devices, layout, flags=None, seed=91, shapes=None) -> dict:
+    """One update of 64 pairs (or V-view frames) of the configuration
+    ``flags`` (family_model) from ``state`` on a (data, spatial) ``layout``
+    of ``devices``, repeated where the list is shorter (a logical mesh;
+    None: unsharded on the first), counts set to 0 just before and read
+    just after; its loss, pred_gaze, gradients, BN buffers and counts."""
     from rot_mvgaze_tpu_torch.parallel import make_mesh, with_spatial_floor
-    from rot_mvgaze_tpu_torch.train import cyclic_triangular2, make_optimizer, make_train_step
+    from rot_mvgaze_tpu_torch.train import (
+        cyclic_triangular2,
+        make_multiview_train_step,
+        make_optimizer,
+        make_train_step,
+    )
 
-    mesh = None if sp is None else make_mesh((devices * sp)[:sp] if len(devices) < sp else devices[:sp],
-                                             spatial=sp)
-    model = family_model({})
+    flags = flags or {}
+    mesh = None
+    if layout is not None:
+        data, sp = layout
+        mesh = make_mesh([devices[i % len(devices)] for i in range(data * sp)], spatial=sp)
+    model = family_model(flags)
     model.load_state_dict(state, strict=True)
     model = with_spatial_floor(model.to(device=devices[0], memory_format=torch.channels_last), mesh)
-    step = make_train_step(model, family_metrics({}), make_optimizer(model.parameters()), image_size=224,
-                           schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
-                           compute_dtype=dtype, mesh=mesh)
+    factory = make_multiview_train_step if family_views(flags) > 2 else make_train_step
+    step = factory(model, family_metrics(flags), make_optimizer(model.parameters()), image_size=224,
+                   schedule=cyclic_triangular2(1e-6, 1e-3, step_size_up=50, step_size_down=50),
+                   compute_dtype=dtype, mesh=mesh)
     hooks = [] if shapes is None else record_strip_shapes(model, shapes)
     reset_mesh_counts(fusion, batchnorm)
     stats = step(batch, torch.Generator(device=devices[0]).manual_seed(seed), step=0)
@@ -3227,7 +3256,7 @@ def time_updates(run, batch, n=3) -> float:
     """Host ms per update over ``n`` updates of a warm (model, step) pair,
     each ending in a synchronize."""
     step = run["step"]
-    gen = torch.Generator(device=batch["img_0"].device).manual_seed(92)
+    gen = torch.Generator(device=next(iter(batch.values())).device).manual_seed(92)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):
@@ -3267,11 +3296,11 @@ def run_spatial_training(fusion, batchnorm, devices: list) -> dict:
         torch.cuda.empty_cache()
 
     # f32 under (1, 2) and (1, 4) against the unsharded f32 update and a float64 step
-    a = spatial_update(fusion, batchnorm, state, batch, torch.float32, devices, None)
+    a = mesh_update(fusion, batchnorm, state, batch, torch.float32, devices, None)
     add(a["counts"])
     l64, g64 = reference_step_f64(state, batch, seed=91)
     for sp in (2, 4):
-        b = spatial_update(fusion, batchnorm, state, batch, torch.float32, devices, sp)
+        b = mesh_update(fusion, batchnorm, state, batch, torch.float32, devices, (1, sp))
         add(b["counts"])
         if b["counts"] != PER_SPATIAL_UPDATE[sp]:
             raise RuntimeError(f"spatial {sp} f32 update launched {b['counts']}, predicted {PER_SPATIAL_UPDATE[sp]}")
@@ -3295,7 +3324,7 @@ def run_spatial_training(fusion, batchnorm, devices: list) -> dict:
     del g64
     discard(a)
 
-    base = spatial_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, None)
+    base = mesh_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, None)
     add(base["counts"])
     if base["counts"] != {**PER_STEP, "bn_stats_finish": 0, "bn_bwd_finish": 0}:
         raise RuntimeError(f"unsharded update launched {base['counts']}")
@@ -3305,8 +3334,8 @@ def run_spatial_training(fusion, batchnorm, devices: list) -> dict:
     base_gap = grad_gap(base["grads"], a["grads"])
     strip_shapes = []
     for sp in (2, 4):
-        run = spatial_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, sp,
-                             shapes=strip_shapes if sp == 2 else None)
+        run = mesh_update(fusion, batchnorm, state, batch, torch.bfloat16, devices, (1, sp),
+                          shapes=strip_shapes if sp == 2 else None)
         add(run["counts"])
         if run["counts"] != PER_SPATIAL_UPDATE[sp] or fusion.rotate_concat_matmul_relu.launches_by_variant["wgmma"] != 6:
             raise RuntimeError(f"spatial {sp} update launched {run['counts']}, predicted {PER_SPATIAL_UPDATE[sp]}")
@@ -3391,10 +3420,160 @@ def run_spatial_cli(fusion, batchnorm, devices: list) -> dict:
     return {"numbers": out, "launches": {k: 2 * v for k, v in counts[0].items()}}
 
 
+# launches per update of 64 V=3 frames (192 images) on a (data d) mesh (the
+# counts PERF.md §6 predicted): each of the 53 BN calls of the fused B·V
+# batch on d blocks of whole samples' views (96 or 48 images), one finish
+# kernel each; the V-view fusers are F.linear
+MV_MESH_DATA = (2, 4)
+PER_MV_MESH_UPDATE = {d: {**{k: 53 * d for k in BN_KERNELS}, "fusion": 0, "conv3x3_bn_stats": 0,
+                          "bn_stats_finish": 53, "bn_bwd_finish": 53} for d in MV_MESH_DATA}
+MV_EVAL_SAMPLES = 67  # a ragged evaluation: padded by samples to 68 on (data 2) and (data 4)
+
+
+def run_multiview_mesh(fusion, batchnorm, ckpt: str, devices: list) -> dict:
+    """Phase 13d: the V-view model (V=3, R50 x 3, 224x224, 64 frames) on
+    (data 2) and (data 4) meshes of ``devices`` from phase 13's checkpoint
+    (a stereo state dict loads at any V) and one generator seed. One f32
+    update on each against the unsharded one: loss rtol 1e-4, every
+    gradient atol 5e-3 / rtol 5e-2 (where a gradient misses that bar, phase
+    7b's rule against a float64 step, recorded), BN buffers within 1e-4;
+    one bf16 update on each against the unsharded bf16 update at phase 7b's
+    bars (loss 1%, pred_gaze 0.1 deg; past 0.1 deg, phase 13b's rule: no
+    farther from the f32 update than 1.5x the unsharded bf16 update), with
+    its host ms beside the unsharded one; the launches PER_MV_MESH_UPDATE
+    predicts; the BN kernels against float64 at every distinct block shape
+    of the (data 2) and (data 4) updates (96 and 48 images per block); the eval step on MV_EVAL_SAMPLES frames on each
+    mesh against the unsharded one at phase 4's f32 bar, no kernel
+    launched."""
+    from rot_mvgaze_tpu_torch.geometry import angular_error_numpy
+    from rot_mvgaze_tpu_torch.parallel import make_mesh
+    from rot_mvgaze_tpu_torch.train import make_multiview_eval_step
+
+    t0 = time.perf_counter()
+    flags = FAMILY["v3"][0]
+    state = torch.load(ckpt)
+    batch = {k: v.to(devices[0]) for k, v in training_batch(seed=95, views=3).items()}
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def update(dtype, data, shapes=None):
+        run = mesh_update(fusion, batchnorm, state, batch, dtype, devices, None if data is None else (data, 1),
+                          flags=flags, seed=96, shapes=shapes)
+        add(run["counts"])
+        want = ({**family_per_step("v3"), "bn_stats_finish": 0, "bn_bwd_finish": 0} if data is None
+                else PER_MV_MESH_UPDATE[data])
+        if run["counts"] != want:
+            raise RuntimeError(f"V=3 {str(dtype)[6:]} update on (data {data}) launched {run['counts']}, "
+                               f"predicted {want}")
+        return run
+
+    def discard(run):
+        for k in ("model", "step", "buffers"):
+            run.pop(k, None)
+        torch.cuda.empty_cache()
+
+    a = update(torch.float32, None)
+    f64 = {}
+    for d in MV_MESH_DATA:
+        b = update(torch.float32, d)
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-4)
+        missed = [n for n, g in a["grads"].items()
+                  if not torch.allclose(b["grads"][n], g, atol=5e-3, rtol=5e-2)]
+        worst = max((b["grads"][n] - g).abs().max().item() for n, g in a["grads"].items())
+        ill = {}
+        if missed:  # phase 7b's rule where float32 cannot reach the bar of a float64 step
+            if not f64:
+                f64["grads"] = reference_step_f64(state, batch, seed=96, flags=flags)[1]
+            worst, ill = hold_f32_grads(f"v3_data{d}_f32", b["grads"], a["grads"], f64["grads"])
+        worst_buf = 0.0
+        for n, v in a["buffers"].items():
+            if n.endswith("num_batches_tracked"):
+                if int(v) != int(b["buffers"][n]):
+                    raise RuntimeError(f"{n}: num_batches_tracked {int(b['buffers'][n])} on (data {d}), {int(v)}")
+                continue
+            torch.testing.assert_close(b["buffers"][n], v, atol=1e-4, rtol=0,
+                                       msg=lambda m: f"V=3 (data {d}) buffer {n}: {m}")
+            worst_buf = max(worst_buf, (b["buffers"][n] - v).abs().max().item())
+        out[f"data{d}_f32"] = {"loss": b["loss"], "loss_unsharded": a["loss"], "max_grad_diff": worst,
+                               "missed_strict_bar": missed, "ill_conditioned": ill, "max_buffer_diff": worst_buf,
+                               "launches": b["counts"]}
+        log(f"V=3 (data {d}) f32 update: loss {b['loss']:.8f} vs {a['loss']:.8f}; gradients max |diff| "
+            f"{worst:.3e}, past atol 5e-3 / rtol 5e-2: {missed} (against float64: {ill}); BN buffers max |diff| "
+            f"{worst_buf:.3e}; launches {b['counts']}")
+        del b
+        torch.cuda.empty_cache()
+    discard(a)
+    f64.clear()
+
+    base = update(torch.bfloat16, None)
+    base_ms = time_updates(base, batch)
+    discard(base)
+    base_far = float(angular_error_numpy(base["pred"], a["pred"]).mean())
+    block_shapes = {d: [] for d in MV_MESH_DATA}
+    for d in MV_MESH_DATA:
+        run = update(torch.bfloat16, d, shapes=block_shapes[d])
+        rel = abs(run["loss"] - base["loss"]) / abs(base["loss"])
+        delta = float(angular_error_numpy(run["pred"], base["pred"]).mean())
+        far = float(angular_error_numpy(run["pred"], a["pred"]).mean())
+        if not (rel <= 1e-2 and (delta <= 0.1 or far <= 1.5 * base_far)):
+            raise RuntimeError(f"V=3 (data {d}) bf16 update deviates: loss rel {rel}, pred_gaze {delta} deg; from "
+                               f"the f32 update {far} deg (unsharded bf16 {base_far})")
+        ms = time_updates(run, batch)
+        out[f"data{d}_bf16"] = {"loss_rel": rel, "delta_deg": delta, "f32_delta_deg": far,
+                                "unsharded_f32_delta_deg": base_far, "launches": run["counts"], "update_ms": ms,
+                                "unsharded_update_ms": base_ms}
+        log(f"V=3 (data {d}) bf16 update: loss {run['loss']:.6f} vs {base['loss']:.6f} (rel {rel:.2e}), pred_gaze "
+            f"delta {delta:.3e} deg (from the f32 update {far:.3e}, unsharded bf16 {base_far:.3e}); launches "
+            f"{run['counts']}; {ms:.1f} ms per update vs {base_ms:.1f} unsharded")
+        discard(run)
+    del a, base
+
+    # the union over both meshes: 96-image blocks on (data 2), 48 on (data 4)
+    cases = {}
+    for d in MV_MESH_DATA:
+        for (rows, c), relu, res in block_shapes[d]:
+            cases.setdefault((rows, c, relu, res), d)
+    out["block_bn_shapes"] = {f"data{d}": len({(r, c, u, s) for (r, c), u, s in block_shapes[d]})
+                              for d in MV_MESH_DATA}
+    out["block_bn_cases"] = len(cases)
+    out["block_bn_max_abs_err_bf16"] = check_bn_kernels(
+        batchnorm, [(f"V=3 (data {d}) block", rows, c, relu, res)
+                    for (rows, c, relu, res), d in sorted(cases.items())])
+
+    model = family_model(flags)
+    model.load_state_dict(state, strict=True)
+    model = model.to(device=devices[0], memory_format=torch.channels_last)
+    frames = training_batch(seed=97, pairs=MV_EVAL_SAMPLES, views=3)
+    ev = {k: frames[k].to(devices[0]) for k in ("imgs", "head_poses")}
+    want = make_multiview_eval_step(model, 224)(ev)["pred_gaze"].cpu().numpy()
+    for d in MV_MESH_DATA:
+        mesh = make_mesh([devices[i % len(devices)] for i in range(d)])
+        reset_mesh_counts(fusion, batchnorm)
+        got = make_multiview_eval_step(model, 224, mesh=mesh)(ev)["pred_gaze"]
+        torch.cuda.synchronize()
+        counts = mesh_counts(fusion, batchnorm)
+        if any(counts.values()) or got.shape != (MV_EVAL_SAMPLES, 2):
+            raise RuntimeError(f"V=3 eval on (data {d}): {tuple(got.shape)}, launches {counts}")
+        got = got.cpu().numpy()
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+        out[f"eval_data{d}_max_abs_diff"] = float(np.abs(got - want).max())
+        log(f"V=3 eval of {MV_EVAL_SAMPLES} frames on (data {d}) (padded to {-(-MV_EVAL_SAMPLES // d) * d}): "
+            f"max |diff| {out[f'eval_data{d}_max_abs_diff']:.3e} against one device (bar atol 2e-4 / rtol 1e-3)")
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"V=3 data meshes: {out['seconds']:.1f} s")
+    return {"numbers": out, "launches": launches}
+
+
 def run_mesh_phase(fusion, batchnorm) -> dict:
-    """Phase 13: mesh serving (a), spatial training (b) and the command
-    line (c) at R50 x 3, full width, 224x224, on a logical mesh of cuda:0,
-    and where this process sees more cards, again over the real cards."""
+    """Phase 13: mesh serving (a), spatial training (b), the command line
+    (c) and the V-view model on data meshes (d) at R50 x 3, full width,
+    224x224, on a logical mesh of cuda:0, and where this process sees more
+    cards, again over the real cards."""
     t_phase = time.perf_counter()
     numbers, launches, serving_launches = {}, {}, 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -3408,10 +3587,12 @@ def run_mesh_phase(fusion, batchnorm) -> dict:
             served = run_mesh_serving(fusion, batchnorm, ckpt, devices)
             serving_launches += served["launches"]
             trained = run_spatial_training(fusion, batchnorm, devices)
-            for k, v in trained["launches"].items():
-                launches[k] = launches.get(k, 0) + v
+            multiview = run_multiview_mesh(fusion, batchnorm, ckpt, devices)
+            for part in (trained, multiview):
+                for k, v in part["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
             numbers[name] = {"serving": served["numbers"], "training": trained["numbers"],
-                             "seconds": time.perf_counter() - t0}
+                             "multiview": multiview["numbers"], "seconds": time.perf_counter() - t0}
             torch.cuda.empty_cache()
     cli = run_spatial_cli(fusion, batchnorm, [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     numbers["cli"] = cli["numbers"]
@@ -3810,6 +3991,38 @@ def run_bench_command(fusion, batchnorm) -> dict:
             "host_vs_events_rel": rel}
 
 
+# bench at V=3 over a logical (data 2) mesh of cuda:0: 32 frames per replica,
+# 192 images per step; per step the launches of phase 13d's (data 2) update
+MV_BENCH_ENV = {"BENCH_NUM_VIEWS": "3", "BENCH_BATCH": "32"}
+MV_BENCH_DEVICES = "cuda:0,cuda:0"
+
+
+def run_multiview_bench(fusion, batchnorm) -> dict:
+    """Phase 16a's V-view part: ``bench.run`` with MV_BENCH_ENV on
+    MV_BENCH_DEVICES, the counts set to 0 just before and read just after:
+    per step PER_MV_MESH_UPDATE[2] (106 launches of each BN kernel on the
+    two replicas' blocks, 53 of each finish kernel, no fuser); its host
+    images/s within 5% of the CUDA events'; the record's n_chips 2."""
+    from rot_mvgaze_tpu_torch import bench
+
+    reset_mesh_counts(fusion, batchnorm)
+    out = bench.run(bench.read_settings(MV_BENCH_ENV), MV_BENCH_DEVICES)
+    torch.cuda.synchronize()
+    counts = mesh_counts(fusion, batchnorm)
+    rec, n = out["record"], out["steps_run"]
+    want = per_step(n, PER_MV_MESH_UPDATE[2])
+    if counts != want or rec.get("n_chips") != 2:
+        raise RuntimeError(f"bench at V=3 on {MV_BENCH_DEVICES} launched {counts} over {n} steps, expected {want}; "
+                           f"record {rec}")
+    rel = abs(rec["value"] - rec["value_by_cuda_events"]) / rec["value_by_cuda_events"]
+    log(f"bench V=3 on {MV_BENCH_DEVICES}: {rec['value']:.1f} images/s per replica, {rec['total_imgs_per_sec']:.1f} "
+        f"in all (CUDA events {rec['value_by_cuda_events']:.1f}, rel {rel:.3e}, bar 0.05), "
+        f"{rec['flops_per_step'] / 1e12:.3f} TFLOP per step; {n} steps of {PER_MV_MESH_UPDATE[2]}")
+    if not rel <= 0.05:
+        raise RuntimeError(f"bench V=3: the host's clock and CUDA events disagree: {rec}")
+    return {"record": rec, "launches": counts, "steps_run": n, "host_vs_events_rel": rel}
+
+
 def run_eval_commands(fusion, batchnorm) -> dict:
     """Phase 16b: bench_eval in bf16, BENCH_INT8=1 and BENCH_INT8=static, at
     EVAL_STEPS timed calls and EVAL_REQUESTS requests: per forward 6 wgmma
@@ -3906,6 +4119,29 @@ def run_split_commands(fusion, batchnorm, tmp) -> dict:
     return {"numbers": out, "launches": launches, "int8_exact": exact}
 
 
+# launches per update of dryrun_multichip(4, "multiview"): R18's 20 BN calls
+# of the fused batch, each on 4 blocks, one finish each; F.linear fusers
+MV_DRYRUN_PER_UPDATE = {**{k: 4 * 20 for k in BN_KERNELS}, "fusion": 0, "conv3x3_bn_stats": 0,
+                        "bn_stats_finish": 20, "bn_bwd_finish": 20}
+
+
+def backbone_bn_cases(depth: int, images: int, size: int, name: str) -> list:
+    """Every distinct BN shape of one call of the depth-``depth`` backbone
+    on ``images`` images of size x size, as BN_CASES entries (name, rows,
+    C, relu, residual)."""
+    from rot_mvgaze_tpu_torch.models.resnet import BACKBONES
+
+    backbone = BACKBONES[depth]().to(device="cuda", memory_format=torch.channels_last).eval()
+    shapes = []
+    hooks = record_bn_shapes(backbone, shapes)
+    with torch.no_grad():
+        backbone(torch.zeros(images, size, size, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    cases = {(n * h * w, c, relu, res): None for (n, c, h, w), relu, res in shapes}
+    return [(name, rows, c, relu, res) for rows, c, relu, res in cases]
+
+
 def run_dryrun_commands(fusion, batchnorm) -> dict:
     """Phase 16d: dryrun.entry()'s forward through the kernels against
     plain_kernels() (phase 4's bf16 bar, mean angular delta <= 0.1 deg; 6
@@ -3946,7 +4182,25 @@ def run_dryrun_commands(fusion, batchnorm) -> dict:
         for k, n in counts.items():
             launches[k] += n
         torch.cuda.empty_cache()
-    return {"entry_mean_delta_deg": delta, "dryrun": runs, "launches": launches}
+    # the V-view configuration (R18/64², V=3, f32) on the same meshes: each BN
+    # call on four blocks of one sample's three views, one finish each
+    bn_err = check_bn_kernels(batchnorm, backbone_bn_cases(18, 3, 64, "multiview dry-run block"))
+    for name, devices in meshes.items():
+        reset_mesh_counts(fusion, batchnorm)
+        run = dryrun.dryrun_multichip(4, config="multiview", devices=devices)
+        torch.cuda.synchronize()
+        counts = mesh_counts(fusion, batchnorm)
+        want = per_step(run["updates"], MV_DRYRUN_PER_UPDATE)
+        if counts != want or (run["eval_rows"], run["padded_to"]) != (6, 8):
+            raise RuntimeError(f"dryrun_multichip(4, 'multiview') on {name} launched {counts}, expected {want}; "
+                               f"evaluation {run['eval_rows']} rows padded to {run['padded_to']}")
+        runs[f"multiview_{name}"] = {**run, "launches": counts, "launches_per_update": MV_DRYRUN_PER_UPDATE}
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"dryrun_multichip(4, 'multiview') on {name}: losses {run['losses']}, {MV_DRYRUN_PER_UPDATE} per update")
+        torch.cuda.empty_cache()
+    return {"entry_mean_delta_deg": delta, "dryrun": runs, "launches": launches,
+            "multiview_block_bn_max_abs_err_bf16": bn_err}
 
 
 def ema_probe_once(tmp: str, cudnn_deterministic: bool = True) -> dict:
@@ -4095,6 +4349,7 @@ def run_drivers_phase(fusion, batchnorm, phase15_record) -> dict:
 
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
         bench_out = timed("bench", lambda: run_bench_command(fusion, batchnorm))
+        mv_bench = timed("bench_v3_data2", lambda: run_multiview_bench(fusion, batchnorm))
         evals = timed("bench_eval", lambda: run_eval_commands(fusion, batchnorm))
         split = timed("split", lambda: run_split_commands(fusion, batchnorm, tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -4124,12 +4379,18 @@ def run_drivers_phase(fusion, batchnorm, phase15_record) -> dict:
     log(f"check_command_budgets on the card, side by side: {json.dumps(budgets)}")
     if not budgets.get("ok"):
         raise RuntimeError(f"check_command_budgets failed on the card: {budgets}")
-    launches = {k: bench_out["launches"][k] + split["launches"][k] + dry["launches"][k] for k in PER_STEP}
+    launches = {k: bench_out["launches"][k] + mv_bench["launches"][k] + split["launches"][k] + dry["launches"][k]
+                for k in PER_STEP}
     launches["fusion"] += evals["fusion"]
+    for k in ("bn_stats_finish", "bn_bwd_finish"):
+        launches[k] = mv_bench["launches"][k] + dry["launches"][k]
     out = {"bench": bench_out["record"], "bench_host_vs_events_rel": bench_out["host_vs_events_rel"],
-           "bench_launches": bench_out["launches"], "bench_eval": evals["records"], **split["numbers"],
+           "bench_launches": bench_out["launches"], "bench_v3_data2": mv_bench["record"],
+           "bench_v3_data2_host_vs_events_rel": mv_bench["host_vs_events_rel"],
+           "bench_v3_data2_launches": mv_bench["launches"], "bench_eval": evals["records"], **split["numbers"],
            "probe_int8_chain_exact": split["int8_exact"], "entry_mean_delta_deg": dry["entry_mean_delta_deg"],
-           "dryrun": dry["dryrun"], "determinism": det, "check_command_budgets": budgets,
+           "dryrun": dry["dryrun"], "multiview_block_bn_max_abs_err_bf16": dry["multiview_block_bn_max_abs_err_bf16"],
+           "determinism": det, "check_command_budgets": budgets,
            "seconds_by_part": seconds, "seconds": time.perf_counter() - t_phase}
     log(f"drivers phase: {json.dumps(seconds)}; {out['seconds']:.1f} s in all")
     return {"numbers": out, "launches": launches}
@@ -4318,6 +4579,14 @@ def main(argv=None) -> int:
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_seconds, lap = {}, [t_start]
+
+    def done(name):
+        now = time.perf_counter()
+        phase_seconds[name] = now - lap[0]
+        lap[0] = now
+
     card = card_line()
     name, power = [s.strip() for s in card.split(",", 1)]
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4334,8 +4603,10 @@ def main(argv=None) -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for src, report in build.build_logs().items():
         print(f"--- nvcc -Xptxas -v: {src}\n{report.strip()}", flush=True)
+    done("1-2 card, build")
 
     max_abs_err = check_kernels(fusion)
+    done("3 fusion kernel")
     # and bench_probes' bb_train (phase 16): one backbone call on both views' 256 images
     bn_err = check_bn_kernels(batchnorm, BN_CASES + step_bn_cases(CLI_BATCH)
                               + step_bn_cases(BB_TRAIN_IMAGES, f"bb_train call of {BB_TRAIN_IMAGES} images"))
@@ -4343,6 +4614,7 @@ def main(argv=None) -> int:
     conv_err = check_conv_kernel(conv_bn)
     conv = run_conv_probe(conv_bn, tag)
     torch.cuda.empty_cache()
+    done("6 BN and conv kernels, probe")
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4350,6 +4622,7 @@ def main(argv=None) -> int:
         make_checkpoint(ckpt)
         served = run_serving(fusion, ckpt)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    done("4 serving")
 
     timing = time_fusion(fusion)
     serve = time_serving(served["predictor"], served["request"])
@@ -4358,6 +4631,7 @@ def main(argv=None) -> int:
     served_variants = served["by_variant"]
     del served
     torch.cuda.empty_cache()
+    done("5 timings")
 
     t0 = time.perf_counter()
     trained = run_training(fusion, batchnorm)
@@ -4365,25 +4639,35 @@ def main(argv=None) -> int:
     bn_timing = time_bn(batchnorm, trained["bn_shapes"])
     log(f"training phases took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    done("7 training")
     keep = tempfile.TemporaryDirectory()
     trainer = run_trainer_phase(fusion, batchnorm, trained["imgs_per_s"], keep.name)
     torch.cuda.empty_cache()
+    done("8 trainer")
     cli = run_cli_phase(fusion, batchnorm, trained["imgs_per_s"])
     torch.cuda.empty_cache()
+    done("9 command line")
     family = run_family_phase(fusion, batchnorm, bn_timing, trainer["checkpoint"])
     torch.cuda.empty_cache()
+    done("10 model family")
     surface = run_serving_surface_phase(fusion, batchnorm, trainer["checkpoint"])
     torch.cuda.empty_cache()
+    done("11 serving surface")
     options = run_options_phase(fusion, batchnorm, trained["bn_shapes"])
     torch.cuda.empty_cache()
+    done("12 options and data parallelism")
     mesh = run_mesh_phase(fusion, batchnorm)
     torch.cuda.empty_cache()
+    done("13 meshes")
     int8_mesh = run_int8_mesh_phase(fusion, batchnorm)
     torch.cuda.empty_cache()
+    done("14 int8 on meshes")
     protocols = run_protocol_phase(fusion, batchnorm, trainer["checkpoint"])
     keep.cleanup()
     torch.cuda.empty_cache()
+    done("15 protocol commands")
     drivers = run_drivers_phase(fusion, batchnorm, protocols["numbers"]["probe_ema_benefit"]["record"])
+    done("16 speed drivers")
 
     print(json.dumps({"serving_profile": breakdown, **tag}), flush=True)
     print(json.dumps({"training_profile": trained["profile"], **tag}), flush=True)
@@ -4523,12 +4807,15 @@ def main(argv=None) -> int:
                              "protocol_commands": protocols["launches"][kind],
                              "drivers": drivers["launches"][kind]},
         **({"finish_launches_data_parallel_ranks": dp_ranks[DP_FINISH[kind]],
-            "finish_launches_mesh_spatial": mesh["launches"].get(DP_FINISH[kind], 0)} if kind in DP_FINISH else {}),
+            "finish_launches_mesh_spatial": mesh["launches"].get(DP_FINISH[kind], 0),
+            "finish_launches_drivers": drivers["launches"][DP_FINISH[kind]]} if kind in DP_FINISH else {}),
         **{f"{name}_ms": rec["ms"] for name, rec in options["numbers"]["options_bn_ms_per_step"].items()
            if name.startswith(kind)},
         "max_abs_err": max(bn_err[kind], family["numbers"]["bn_max_abs_err_bf16"][kind],
                            options["numbers"]["prefix_bn_max_abs_err_bf16"].get(kind, 0.0),
-                           mesh["numbers"]["logical"]["training"]["strip_bn_max_abs_err_bf16"][kind]),
+                           mesh["numbers"]["logical"]["training"]["strip_bn_max_abs_err_bf16"][kind],
+                           mesh["numbers"]["logical"]["multiview"]["block_bn_max_abs_err_bf16"][kind],
+                           drivers["numbers"]["multiview_block_bn_max_abs_err_bf16"][kind]),
         "ms": bn_timing[kind]["ms"],
         "plain_ms": bn_timing[kind]["plain_ms"],
         "bound_ms": bn_timing[kind]["bound_ms"],
@@ -4555,6 +4842,9 @@ def main(argv=None) -> int:
                        for rec in conv["r50"]],
         "timed_over": "one call at the probe's shape, 256 x 14 x 14 x 256 -> 256, bf16",
     }]
+    phase_seconds["all"] = time.perf_counter() - t_start
+    log(f"phase seconds: {json.dumps(phase_seconds)}")
+    print(json.dumps({"phase_seconds": phase_seconds, **tag}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

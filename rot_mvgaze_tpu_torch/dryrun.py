@@ -35,8 +35,8 @@ import torch
 #: (image size, backbone depth, dtype, spatial, views), JAX's configurations:
 #: "reduced" R18/64² f32 (the default), "r50-small" the flagship's structure
 #: at 64², "flagship" R50/224² bf16, "spatial" R18/64² on a (data n/2,
-#: spatial 2) mesh, "multiview" R18/64² at V=3 (the V-view step takes no
-#: mesh in the port, so it runs on one device only)
+#: spatial 2) mesh, "multiview" R18/64² at V=3 on a data mesh (each replica
+#: one sample's 3 views)
 DRYRUN_CONFIGS = {
     "r50-small": (64, 50, "float32", 1, 2),
     "flagship": (224, 50, "bfloat16", 1, 2),
@@ -131,9 +131,6 @@ def dryrun_multichip(n_devices: int, n_steps: int = 4, config: str = "reduced", 
     if config not in DRYRUN_CONFIGS:
         raise ValueError(f"unknown dryrun config {config!r}; choose from {sorted(DRYRUN_CONFIGS)}")
     size, depth, dtype_name, spatial, num_views = DRYRUN_CONFIGS[config]
-    if num_views > 2 and n_devices > 1:
-        raise ValueError(f"config {config!r} (V={num_views}) runs on one device: the V-view steps take no "
-                         f"device mesh in the port")
     devices = list(devices) if devices is not None else mesh_devices(n_devices, device)
     if len(devices) != n_devices:
         raise ValueError(f"need {n_devices} devices, got {len(devices)}")
@@ -155,8 +152,7 @@ def dryrun_multichip(n_devices: int, n_steps: int = 4, config: str = "reduced", 
     # a constant rate: repeating one batch must lower the loss within n_steps
     # (the cyclic schedule starts at 1e-6); 1e-4, not 1e-3, which from random
     # BatchNorm statistics first spikes the loss
-    step_kw = {} if num_views > 2 else {"mesh": mesh}
-    train_step = workload.make_train_step(optimizer, image_size=size, schedule=lambda _t: 1e-4, **step_kw)
+    train_step = workload.make_train_step(optimizer, image_size=size, schedule=lambda _t: 1e-4, mesh=mesh)
     losses = []
     for i in range(n_steps):
         stats = train_step(host, torch.Generator(first).manual_seed(1), step=i)
@@ -171,7 +167,7 @@ def dryrun_multichip(n_devices: int, n_steps: int = 4, config: str = "reduced", 
         f"loss did not decrease over {n_steps} steps on a repeated batch: {losses}")
 
     ragged = batch + max(1, batch // 2)  # not a multiple of the data axis (for n_data > 1)
-    eval_step = workload.make_eval_step(image_size=size, **step_kw)
+    eval_step = workload.make_eval_step(image_size=size, mesh=mesh)
     eval_batch = to_device(workload.host_batch(rng, ragged, size), first)
     say(f"[{time.monotonic() - t0:6.1f}s] evaluation over the mesh ...")
     preds = eval_step(eval_batch)["pred_gaze"]

@@ -19,9 +19,14 @@ train-mode BatchNorm statistics merge across views (the V-view counterpart
 of ``fuse_views``). The fusers are called with ``rot=None`` (the partners
 arrive rotated), as in the JAX package, so they are ``F.linear`` MLPs.
 
-Input  : ``{"imgs": (B,V,H,W,C), "rots": (B,V,3,3), ...}``, or in place of
-``imgs`` the pooled backbone features ``BACKBONE_FEATURES`` (B·V, D), taken
-elsewhere (``FeatRotationSymm``'s docstring).
+Input  : ``{"imgs": (B,V,H,W,C), "rots": (B,V,3,3), ...}``; on a data mesh
+``imgs`` are the B·V views flattened b-major as ``parallel.spatial.Sharded``
+blocks over the replicas (``parallel.shard_batch``), B and V read from
+``rots``: the backbone runs on the blocks, its pooled (B·V, D) features
+meet the rest on the first device in global order, and the train-mode
+BatchNorm statistics are the whole batch's. In place of ``imgs``, the
+pooled backbone features ``BACKBONE_FEATURES`` (B·V, D), taken elsewhere
+(``FeatRotationSymm``'s docstring).
 Output : input ∪ ``{num_iter, num_views, img_feats (B,V,D),
           initial_rot_feats (B,V,3,K),
           iter_{i}: {feats (B,V,3,K), pred_gazes (B,V,2)},
@@ -38,6 +43,7 @@ from torch import nn
 from rot_mvgaze_tpu_torch.models.blocks import Mlp
 from rot_mvgaze_tpu_torch.models.resnet import BACKBONES
 from rot_mvgaze_tpu_torch.models.rot_mv import BACKBONE_FEATURES, NUM_FEAT_VEC, Feat3dLifter, ImageFeatFuser
+from rot_mvgaze_tpu_torch.parallel.spatial import Sharded
 
 
 class FeatRotationMultiView(nn.Module):
@@ -89,7 +95,12 @@ class FeatRotationMultiView(nn.Module):
         img_feats_flat = data.get(BACKBONE_FEATURES)
         if img_feats_flat is None:
             imgs = data["imgs"]
-            img_feats_flat = self._feat_extractor(imgs.reshape((b * v,) + tuple(imgs.shape[2:])))
+            if isinstance(imgs, Sharded):
+                if imgs.shape[0] != b * v:
+                    raise ValueError(f"imgs on a mesh hold {imgs.shape[0]} views, rots {b} x {v}")
+            else:
+                imgs = imgs.reshape((b * v,) + tuple(imgs.shape[2:]))
+            img_feats_flat = self._feat_extractor(imgs)
         rot_feats_flat = self._lifter(img_feats_flat)  # (B*V, 3, K)
 
         with torch.autocast(rots.device.type, enabled=False):

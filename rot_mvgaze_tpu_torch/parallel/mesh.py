@@ -17,8 +17,9 @@ GSPMD does: ``ceil(h/n)`` rows per strip, the remainder in the last.
 :func:`with_spatial_floor` sets the backbone's floor (the strips are
 gathered before a stage whose output would leave fewer than 2 rows in a
 strip) and refuses a model that has none. :func:`shard_batch` places a
-batch on the mesh: NHWC images over (data, height), the rest whole on the
-first device. :func:`visible_devices` reads a ``--device`` flag.
+batch on the mesh: NHWC images over (data, height), V-view images flattened
+to their B·V views first, the rest whole on the first device.
+:func:`visible_devices` reads a ``--device`` flag.
 """
 
 from __future__ import annotations
@@ -152,13 +153,25 @@ def with_spatial_floor(model: Any, mesh: Optional[Mesh]) -> Any:
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[str, Any]:
     """A batch dict placed on the mesh (the counterpart of JAX's
-    ``shard_batch`` / ``pin_images``): each NHWC image (a rank-4 leaf) as
+    ``shard_batch`` / ``pin_images``): each NHWC image leaf as
     ``spatial.Sharded`` blocks, its rows over the data replicas and each
     replica's height in strips over its group; every other leaf stays whole
     where it is, on the first device, where the pooled features meet it. A
-    mesh of one device, or none, leaves the batch as it is."""
+    rank-4 leaf (B, H, W, C) is cut by rows; a V-view leaf (B, V, H, W, C)
+    is flattened b-major to (B·V, H, W, C) first, so that each replica holds
+    whole samples' views, as JAX shards B and reshapes on each device: its
+    B samples must split evenly over the data replicas. A mesh of one
+    device, or none, leaves the batch as it is."""
     if mesh is None or dp_size(mesh) * spatial_size(mesh) == 1:
         return dict(batch)
     from rot_mvgaze_tpu_torch.parallel.spatial import shard_images
 
-    return {k: shard_images(v, mesh.grid) if v.ndim == 4 else v for k, v in batch.items()}
+    out: Dict[str, Any] = {}
+    for k, v in batch.items():
+        if v.ndim == 5:
+            if v.shape[0] % dp_size(mesh):
+                raise ValueError(f"a batch of {v.shape[0]} samples ({k}: {v.shape[1]} views each) does not "
+                                 f"split over {dp_size(mesh)} data replicas")
+            v = v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
+        out[k] = shard_images(v, mesh.grid) if v.ndim == 4 else v
+    return out

@@ -348,14 +348,22 @@ def make_eval_step(model: nn.Module, image_size: int = 224,
                 "rot_1": rotation_matrix_2d(batch["head_pose_1"].float())}
         rows = imgs["img_0"].shape[0]
         previews = {v: imgs[v][:8] for v in ("img_0", "img_1")}
-        if rows % dp_size(mesh):
-            pad = dp_size(mesh) - rows % dp_size(mesh)
-            imgs, rots = ({k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])]) for k, v in d.items()}
-                          for d in (imgs, rots))
+        imgs, rots = pad_to_replicas(imgs, mesh), pad_to_replicas(rots, mesh)
         out = eval_forward(model, {**shard_batch(imgs, mesh), **rots}, params)
         return {"pred_gaze": out["pred_gaze"][:rows].float(), **previews}
 
     return eval_step
+
+
+def pad_to_replicas(tensors: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """``tensors`` (leading axis: samples) padded by repeating the last
+    sample to a multiple of the mesh's data replicas; unchanged where they
+    already split. The eval steps drop the padding's predictions."""
+    rows = next(iter(tensors.values())).shape[0]
+    pad = -rows % dp_size(mesh)
+    if not pad:
+        return tensors
+    return {k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])]) for k, v in tensors.items()}
 
 
 def make_single_view_eval_step(

@@ -39,7 +39,8 @@ cut each batch's views over the mesh (``make_train_step(mesh=)``), height
 strips over a spatial group with halo rows between them. Under torchrun each
 process drives its own spatial group, and data parallelism runs over the
 processes as above. Checkpoints are the same files, with the reference's
-key names. The V-view model takes no spatial mesh, as in the JAX package.
+key names. The V-view model takes a data mesh (each replica whole samples'
+views) and no spatial one, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ from rot_mvgaze_tpu_torch.evaluate import (
     format_breakdown,
 )
 from rot_mvgaze_tpu_torch.geometry.gaze import angular_error_numpy
-from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, spatial_size, with_spatial_floor
+from rot_mvgaze_tpu_torch.parallel.mesh import Mesh, dp_size, with_spatial_floor
 from rot_mvgaze_tpu_torch.train.checkpoints import (
     CHECKPOINT_GLOB,
     RESUME_GLOBS,
@@ -81,7 +82,11 @@ from rot_mvgaze_tpu_torch.train.checkpoints import (
     is_full_state,
     save_state,
 )
-from rot_mvgaze_tpu_torch.train.multiview_steps import make_multiview_eval_step, make_multiview_train_step
+from rot_mvgaze_tpu_torch.train.multiview_steps import (
+    check_mesh,
+    make_multiview_eval_step,
+    make_multiview_train_step,
+)
 from rot_mvgaze_tpu_torch.train.schedule import cyclic_triangular2
 from rot_mvgaze_tpu_torch.train.steps import init_ema, make_eval_step, make_train_step
 from rot_mvgaze_tpu_torch.train.tb import NullSummaryWriter, SummaryWriter, make_image_grid
@@ -161,11 +166,10 @@ class Trainer:
         self.group = parallel.device_group()
         self._is_primary = self.rank == 0
         if mesh is not None:
-            if self.num_views > 2 and spatial_size(mesh) > 1:
-                raise ValueError("--spatial_partition is not supported with --num_views > 2")
-            if self.num_views > 2 and dp_size(mesh) > 1:
-                raise ValueError("the V-view model trains data-parallel over processes (torchrun), "
-                                 "not over a mesh's data axis in one process")
+            # a spatial axis refused in JAX's words, before with_spatial_floor
+            # refuses the V-view model (it has no spatial floor) in its own
+            if self.num_views > 2:
+                check_mesh(mesh)
             # the backbone gathers its strips once the maps get too small to
             # split; raises for a model without the floor
             model = with_spatial_floor(model, mesh)
@@ -330,6 +334,8 @@ class Trainer:
                   "at its initial statistics (mean 0, var 1); it is meant for warm starts",
                   flush=True)
         grad_accum = int(getattr(config, "grad_accum", 1) or 1)
+        # batch_size counts samples (pairs, or frames of V views): a V-view
+        # sample's views stay on one replica
         if dp_size(mesh) > 1 and train_loader is not None \
                 and train_loader.batch_size % (grad_accum * dp_size(mesh)):
             raise ValueError(f"batch_size {train_loader.batch_size} does not split into {grad_accum} "
@@ -350,8 +356,8 @@ class Trainer:
             if grad_accum > 1:
                 raise ValueError("grad_accum > 1 is not supported with num_views > 2")
             self._train_step = make_multiview_train_step(self.model, metrics, self.optimizer,
-                                                         group=self.group, **step_options)
-            self._eval_step = make_multiview_eval_step(self.model, self.image_size)
+                                                         group=self.group, mesh=mesh, **step_options)
+            self._eval_step = make_multiview_eval_step(self.model, self.image_size, mesh=mesh)
             self._eval_keys = MULTIVIEW_EVAL_KEYS
         else:
             self._train_step = make_train_step(self.model, metrics, self.optimizer,

@@ -147,7 +147,8 @@ class Workload:
     def make_train_step(self, optimizer: torch.optim.Optimizer, image_size: int, **kw: Any):
         """The train step of this workload's model (``train.make_train_step``
         or ``train.make_multiview_train_step``), in the workload's compute
-        dtype unless ``compute_dtype`` is given."""
+        dtype unless ``compute_dtype`` is given; ``mesh`` (a data mesh) and
+        the other keywords go to either factory."""
         from rot_mvgaze_tpu_torch.train import make_multiview_train_step, make_train_step
 
         kw.setdefault("compute_dtype", self.dtype)
@@ -155,6 +156,8 @@ class Workload:
         return factory(self.model, self.metrics, optimizer, image_size=image_size, **kw)
 
     def make_eval_step(self, image_size: int, **kw: Any):
+        """The eval step of this workload's model (``train.make_eval_step``
+        or ``train.make_multiview_eval_step``; ``mesh`` to either)."""
         from rot_mvgaze_tpu_torch.train import make_eval_step, make_multiview_eval_step
 
         factory = make_multiview_eval_step if self.multiview else make_eval_step

@@ -83,6 +83,21 @@ def test_bench_prints_the_record(env, capsys, monkeypatch):
     assert rec["flops_per_step"] > 0 and "vs_baseline" not in rec and "hbm_bw_util" not in rec
 
 
+def test_bench_runs_the_v_view_step_over_a_data_mesh(env):
+    """BENCH_NUM_VIEWS=3 over --device cpu,cpu: the V-view step on a (data
+    2) mesh, each replica BENCH_BATCH frames of 3 views; the record counts
+    V images per sample and adds n_chips and total_imgs_per_sec, as the
+    stereo record over a mesh does."""
+    env({**TINY, "BENCH_NUM_VIEWS": "3"})
+    out = bench.run(bench.read_settings(), "cpu,cpu", steps=1)
+    rec = out["record"]
+    assert out["devices"] == ["cpu", "cpu"] and out["steps_run"] == bench.WARMUP + 1
+    assert rec["metric"] == "rotmv_r18_mv3_train_step_throughput" and rec["value"] > 0
+    assert rec["config"] == {"backbone_depth": 18, "num_iter": 1, "image_size": 32, "num_views": 3}
+    assert rec["n_chips"] == 2 and rec["total_imgs_per_sec"] == pytest.approx(2 * rec["value"])
+    assert rec["unit"].startswith("images/sec/card (3-view 32^2")
+
+
 JAX_REFUSALS = [
     ({"BENCH_NUM_VIEWS": "1"}, "BENCH_NUM_VIEWS must be >= 2"),
     ({"BENCH_FREEZE_BN": "1", "BENCH_FUSE_VIEWS": "1"}, "silently inert: BENCH_FUSE_VIEWS"),

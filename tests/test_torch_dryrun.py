@@ -1,8 +1,8 @@
 """The port's forward check and multi-device dry run
 (rot_mvgaze_tpu_torch.dryrun) on the CPU: dryrun_multichip(2, "reduced")
-over ["cpu"] * 2 (the loss falls over a repeated batch, the update count
-advances, the evaluation over the mesh takes a ragged batch), its
-refusals, and entry()'s seeded bf16 forward."""
+and dryrun_multichip(2, "multiview") over ["cpu"] * 2 (the loss falls over
+a repeated batch, the update count advances, the evaluation over the mesh
+takes a ragged batch), its refusals, and entry()'s seeded bf16 forward."""
 
 import pytest
 import torch
@@ -27,10 +27,22 @@ def test_dryrun_multichip_on_two_cpu_devices(capsys):
     assert "dryrun_multichip(2) OK [reduced: R18/64^2 float32" in capsys.readouterr().out
 
 
+def test_dryrun_multichip_multiview_on_two_cpu_devices(capsys):
+    """The V-view configuration (R18/64², V=3) over a (data 2) mesh, as
+    JAX's dry run shards it: one sample's three views per replica, the
+    loss trend, and a ragged evaluation of 3 samples padded by samples to
+    4."""
+    run = dryrun.dryrun_multichip(2, config="multiview", device="cpu")
+    assert run["devices"] == ["cpu", "cpu"] and run["updates"] == 4
+    losses = run["losses"]
+    assert (losses[-2] + losses[-1]) / 2 < (losses[0] + losses[1]) / 2
+    assert (run["eval_rows"], run["padded_to"]) == (3, 4)
+    assert "dryrun_multichip(2) OK [multiview: R18/64^2 float32" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("kwargs, match", [
     ({"n_steps": 3}, "n_steps must be >= 4"),
     ({"config": "bogus"}, "unknown dryrun config"),
-    ({"config": "multiview"}, "V-view steps take no device mesh"),
     ({"devices": ["cpu"]}, "need 2 devices"),
 ])
 def test_dryrun_refusals(kwargs, match):
